@@ -3,19 +3,21 @@
 It runs Algorithm 1 of the paper (all four variants) on an NVIDIA GPU,
 with lines 9-11 of every round in hand-written CUDA kernels
 (:mod:`repro_torch.kernels`), and on the CPU through those kernels'
-plain PyTorch versions.  The JAX package ``repro`` beside it is the
+plain PyTorch versions; the asynchronous server and the hierarchical
+fleet of :mod:`repro_torch.fl` run on top of it.  The JAX package ``repro`` beside it is the
 reference; this package imports nothing of it, nor of JAX.
 
 Entry points that create tensors take ``device=`` and default to
 ``"cuda"``; without a card they raise unless asked for ``"cpu"``.
 """
 from repro_torch.core import (BlockRandK, DashaPP, DashaPPConfig,
-                              DashaPPState, FullParticipation, Identity,
-                              Independent, LogisticSigmoidProblem,
+                              DashaPPState, EdgeSNice, FullParticipation,
+                              Identity, Independent, LogisticSigmoidProblem,
                               NonconvexSoftmaxProblem, QuadraticProblem,
-                              RandK, RoundDraws, SNice, StepMetrics,
-                              dasha_pp, dasha_pp_finite_mvr, dasha_pp_mvr,
-                              dasha_pp_page, make_sampler,
+                              RandK, RandomDithering, RoundDraws, SNice,
+                              StepMetrics, TopK, dasha_pp,
+                              dasha_pp_finite_mvr, dasha_pp_mvr,
+                              dasha_pp_page, make_compressor, make_sampler,
                               make_synthetic_classification,
                               sample_batch_indices, theory)
 from repro_torch.device import resolve_device
@@ -25,7 +27,8 @@ __all__ = [
     "dasha_pp", "dasha_pp_page", "dasha_pp_finite_mvr", "dasha_pp_mvr",
     "LogisticSigmoidProblem", "NonconvexSoftmaxProblem", "QuadraticProblem",
     "make_synthetic_classification", "sample_batch_indices",
-    "Identity", "RandK", "BlockRandK",
-    "SNice", "Independent", "FullParticipation", "make_sampler",
+    "Identity", "RandK", "BlockRandK", "TopK", "RandomDithering",
+    "make_compressor",
+    "SNice", "Independent", "FullParticipation", "EdgeSNice", "make_sampler",
     "theory", "resolve_device",
 ]

@@ -60,10 +60,16 @@ def state(ref_state, device="cuda") -> DashaPPState:
 def round_draws(mask, batch_idx=None, coin=None, comp_idx=None,
                 device="cuda") -> RoundDraws:
     """One round's draws from arrays: ``mask`` (n,), ``batch_idx``
-    (n, B), ``coin`` (), ``comp_idx`` (n, k) or (n, kb)."""
+    (n, B), ``coin`` (), ``comp_idx`` (n, k) or (n, kb) indices, or the
+    (n, d) float uniforms of dithering."""
     def idx(a):
         return None if a is None else tensor(a, device, torch.int64)
+    comp = None
+    if comp_idx is not None:
+        floating = np.issubdtype(np.asarray(comp_idx).dtype, np.floating)
+        comp = (tensor(comp_idx, device, torch.float32) if floating
+                else idx(comp_idx))
     return RoundDraws(
         mask=tensor(mask, device, torch.bool), batch_idx=idx(batch_idx),
         coin=None if coin is None else tensor(coin, device, torch.bool),
-        comp_idx=idx(comp_idx))
+        comp_idx=comp)

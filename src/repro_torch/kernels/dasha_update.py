@@ -1,11 +1,12 @@
-"""PyTorch wrappers of the fused DASHA-PP update kernels.
+"""PyTorch wrappers of the fused DASHA-PP update kernels and the async
+server's buffered commit.
 
 The kernels are CUDA C++ (``csrc/dasha_update.cu``), built and loaded by
 :mod:`.build` at first use.  Each wrapper checks its tensors (CUDA,
 float32, shapes, contiguity) and raises on anything else, allocates the
 outputs with ``torch.empty_like``, forms the hyperparameter coefficients
 in Python double exactly as the Pallas body does (``inv_pa = 1/pa``,
-``a * inv_pa``, ``b / p_page``), launches on the current stream, raises
+``a * inv_pa``, ``b / p_page``, ``inv_n = 1/n``), launches on the current stream, raises
 if the launch failed, and counts the launch in :data:`launches`.
 
 They take CUDA tensors only; :mod:`.ops` routes CPU tensors to the plain
@@ -27,7 +28,8 @@ LIBRARY = "dasha_update"
 
 launches: Dict[str, int] = {"dasha_update_batched": 0,
                             "dasha_page_update_batched": 0,
-                            "dasha_tail_batched": 0}
+                            "dasha_tail_batched": 0,
+                            "buffered_commit": 0}
 """Kernel launches since the last :func:`reset_launches`, by kernel."""
 
 
@@ -42,6 +44,8 @@ _SIGNATURES = {
     "dasha_update_batched": [_P] * 8 + [_I64, _I64] + [_F] * 3 + [_P],
     "dasha_page_update_batched": [_P] * 11 + [_I64, _I64] + [_F] * 3 + [_P],
     "dasha_tail_batched": [_P] * 6 + [_I64, _I64] + [_F] * 2 + [_P],
+    # g, m_buf, weights, out, K, d, inv_n, stream
+    "buffered_commit": [_P] * 4 + [_I64, _I64, _F, _P],
 }
 
 
@@ -71,18 +75,28 @@ def _check(arrays: Dict[str, Tensor], mask: Tensor,
     operands["mask"] = (mask, (n,))
     if coin is not None:
         operands["coin"] = (coin, (1,))
+    _check_operands(operands)
+    return n, d
+
+
+def _check_operands(operands: Dict[str, Tuple[Tensor, Tuple[int, ...]]]
+                    ) -> None:
+    """Raise unless every tensor is a contiguous float32 tensor of its
+    shape on the first one's CUDA device (shapes and types are checked
+    for all operands before devices)."""
+    first = next(iter(operands.values()))[0]
     for name, (t, shape) in operands.items():
-        if t.device.type != "cuda" or t.device != first.device:
-            raise ValueError(f"{name}: expected a tensor on {first.device} "
-                             f"(CUDA), got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected shape {shape}, got "
                              f"{tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    for name, (t, _) in operands.items():
+        if t.device.type != "cuda" or t.device != first.device:
+            raise ValueError(f"{name}: expected a tensor on {first.device} "
+                             f"(CUDA), got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")
-    return n, d
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -139,3 +153,20 @@ def dasha_tail_batched(k: Tensor, h: Tensor, gi: Tensor, mask: Tensor, *,
             k.data_ptr(), h.data_ptr(), gi.data_ptr(), mask.data_ptr(),
             h_new.data_ptr(), payload.data_ptr(), n, d, inv_pa, a * inv_pa)
     return h_new, payload
+
+
+def buffered_commit(g: Tensor, m_buf: Tensor, weights: Tensor, *,
+                    n_nodes: int) -> Tensor:
+    """The async server step: ``g + (1/n_nodes) sum_k weights[k] m_buf[k]``
+    with ``g`` (d,), ``m_buf`` (K, d) and ``weights`` (K,).  Returns a new
+    (d,) tensor."""
+    if g.dim() != 1 or m_buf.dim() != 2:
+        raise ValueError(f"expected g (d,) and m_buf (K, d), got "
+                         f"{tuple(g.shape)} and {tuple(m_buf.shape)}")
+    (d,), kk = g.shape, m_buf.shape[0]
+    _check_operands(dict(g=(g, (d,)), m_buf=(m_buf, (kk, d)),
+                         weights=(weights, (kk,))))
+    out = torch.empty_like(g)
+    _launch("buffered_commit", g.device, g.data_ptr(), m_buf.data_ptr(),
+            weights.data_ptr(), out.data_ptr(), kk, d, 1.0 / n_nodes)
+    return out

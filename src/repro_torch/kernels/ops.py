@@ -1,6 +1,7 @@
-"""The op layer the engine calls for Algorithm 1 lines 9-11.
+"""The op layer the engine calls for Algorithm 1 lines 9-11, and the
+async server for its commit.
 
-The port of ``repro/kernels/ops.py:76-115``.  Each op looks at where its
+The port of ``repro/kernels/ops.py:76-115`` and ``:177-186``.  Each op looks at where its
 tensors lie: on the CPU it runs the kernel's plain version
 (:mod:`.ref`); on a CUDA device it launches the kernel
 (:mod:`.dasha_update`), which raises if it cannot.  There is no other
@@ -62,3 +63,14 @@ def dasha_tail_op(k: Tensor, h: Tensor, gi: Tensor, mask: Tensor, *,
         return kernels.dasha_tail_batched(k, h, gi, mask.to(torch.float32),
                                           a=a, pa=pa)
     return ref.dasha_tail_batched_ref(k, h, gi, mask, a=a, pa=pa)
+
+
+def buffered_commit_op(g: Tensor, m_buf: Tensor, weights: Tensor, *,
+                       n_nodes: int) -> Tensor:
+    """The async server step ``g + (1/n_nodes) (weights @ m_buf)`` in one
+    pass over the (K, d) buffer of arrived messages."""
+    if _on_cuda(g):
+        return kernels.buffered_commit(g, m_buf,
+                                       weights.to(torch.float32),
+                                       n_nodes=n_nodes)
+    return ref.buffered_commit_ref(g, m_buf, weights, n_nodes=n_nodes)

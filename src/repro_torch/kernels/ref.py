@@ -1,10 +1,14 @@
-"""Plain PyTorch versions of the three DASHA-PP update kernels.
+"""Plain PyTorch versions of the port's CUDA kernels: the three DASHA-PP
+updates and the async server's buffered commit.
 
 Each follows its Pallas body's arithmetic operation for operation
-(``repro/kernels/dasha_update.py:159-163``, ``:209-215``, ``:260-262``):
-the hyperparameters enter as ``inv_pa = 1 / pa``, ``a * inv_pa`` and
-``b / p_page`` formed in Python double, and the PAGE coin blends the two
-branches arithmetically.  The CUDA kernels in ``csrc/dasha_update.cu``
+(``repro/kernels/dasha_update.py:159-163``, ``:209-215``, ``:260-262``,
+``:389-394``): the hyperparameters enter as ``inv_pa = 1 / pa``,
+``a * inv_pa``, ``b / p_page`` and ``inv_n = 1 / n`` formed in Python
+double, and the PAGE coin blends the two branches arithmetically.  The
+buffered commit sums its ``K`` rows one after another in order, as the
+CUDA kernel does; ``w @ m``, whose order BLAS leaves open, would not
+round the same way.  The CUDA kernels in ``csrc/dasha_update.cu``
 round every operation the same way (built with ``--fmad=false``), so on
 the card the two agree exactly.
 
@@ -59,3 +63,13 @@ def dasha_tail_batched_ref(k: Tensor, h: Tensor, gi: Tensor, mask: Tensor,
                            *, a: float, pa: float) -> Tuple[Tensor, Tensor]:
     """Lines 10-11 given ``k`` (Alg. 4, finite-MVR)."""
     return _tail(k, h, gi, mask, a=a, pa=pa)
+
+
+def buffered_commit_ref(g: Tensor, m_buf: Tensor, weights: Tensor, *,
+                        n_nodes: int) -> Tensor:
+    """``g + (1/n_nodes) sum_k weights[k] m_buf[k]``, the rows summed in
+    order in float32 (``K = 0`` gives ``g``)."""
+    acc = torch.zeros_like(g)
+    for k in range(m_buf.shape[0]):
+        acc = acc + weights[k] * m_buf[k]
+    return g + (1.0 / n_nodes) * acc

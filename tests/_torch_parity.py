@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from repro.core import variants as ref_variants
-from repro.core.compressors import BlockRandK, Identity, RandK
+from repro.core.compressors import (BlockRandK, Identity, RandK,
+                                    RandomDithering, TopK)
 from repro.core.problems import sample_batch_indices
 
 
@@ -42,8 +43,10 @@ def numpy_inputs(seed: int, count: int, shape) -> List[np.ndarray]:
 def _compressor_indices(comp, k_comp, n: int, d: int):
     keys = jax.vmap(lambda i: ref_variants.leaf_node_key(k_comp, 0, i))(
         jnp.arange(n))
-    if isinstance(comp, Identity):
+    if isinstance(comp, (Identity, TopK)):
         return None
+    if isinstance(comp, RandomDithering):
+        return jax.vmap(lambda k: jax.random.uniform(k, (d,)))(keys)
     if isinstance(comp, RandK):
         if min(comp.k, d) == d:
             return None
@@ -57,7 +60,10 @@ def _compressor_indices(comp, k_comp, n: int, d: int):
 
 def reference_draws(alg, key, num_rounds: int) -> List[Dict[str, object]]:
     """The draws ``alg.run(key, x0, num_rounds)`` consumes, per round, as
-    keyword arguments of :func:`repro_torch.convert.round_draws`."""
+    keyword arguments of :func:`repro_torch.convert.round_draws`.  ``alg``
+    is a ``DashaPP`` or anything with its ``problem``, ``cfg``,
+    ``sampler`` and ``compressor`` that derives its round keys the same
+    way (``AsyncDashaServer``; the fleet's ``DenseProblemWorkload``)."""
     p, cfg = alg.problem, alg.cfg
     _, run_key = jax.random.split(key)
     rounds = []

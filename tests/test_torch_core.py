@@ -1,13 +1,15 @@
 """The port's core modules against the JAX package: problems and their
-oracles, the wire model and theory copies, samplers and compressors by
-distribution and given the reference's draws, the device guard, and
-the rule that the port imports neither JAX nor the JAX package.
+oracles, the copies of the JAX package's stdlib and numpy modules,
+samplers and compressors by distribution and given the reference's
+draws, the device guard, and the rule that the port imports neither JAX
+nor the JAX package.
 
 Tolerances: problem oracles rtol = 1e-5, atol = 1e-6 (float32 sums in
 another order: the port's gradient is a batched product over the
 features where the reference averages materialised per-component
 gradients); compressors given the same indices, bit counts and theory
-formulas exactly.
+formulas exactly; dithering given the same uniforms rtol = 1e-6,
+atol = 1e-7 (the row norm is a float32 sum in another order).
 """
 import ast
 import dataclasses
@@ -77,7 +79,53 @@ def test_synthetic_classification_shapes_and_labels():
     assert 0.1 < (feats != 0).float().mean().item() < 0.3
 
 
+# The port's copies of the JAX package's modules that need neither JAX
+# nor anything else of the package, with the functions whose bodies may
+# differ: trace.kernel_scope names a torch.profiler range, not a
+# jax.named_scope.
+COPIES = {"core/wire.py": (), "core/theory.py": (), "fl/events.py": (),
+          "fl/staleness.py": (), "fl/latency.py": (),
+          "fl/client_store.py": (), "obs/trace.py": ("kernel_scope",),
+          "obs/metrics.py": (), "obs/monitors.py": (),
+          "training/metrics.py": ()}
+
+
+def _code_without_imports(path: Path, differing=()) -> str:
+    """The module's AST without imports, docstrings and the named
+    top-level functions, dumped."""
+    tree = ast.parse(path.read_text(), str(path))
+
+    class Strip(ast.NodeTransformer):
+        def visit_Import(self, node):
+            return None
+
+        def visit_ImportFrom(self, node):
+            return None
+
+        def generic_visit(self, node):
+            body = getattr(node, "body", None)
+            if (isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                  ast.AsyncFunctionDef)) and body
+                    and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)
+                    and isinstance(body[0].value.value, str)):
+                node.body = body[1:]
+            if isinstance(node, ast.Module):
+                node.body = [n for n in node.body
+                             if getattr(n, "name", None) not in differing]
+            return super().generic_visit(node)
+
+    return ast.dump(Strip().visit(tree))
+
+
 def test_wire_and_theory_copies_match_reference():
+    for rel, differing in COPIES.items():
+        copy = REPO / "src" / "repro_torch" / rel
+        orig = REPO / "src" / "repro" / rel
+        assert _code_without_imports(copy, differing) == \
+            _code_without_imports(orig, differing), rel
+        for name in differing:
+            assert f"def {name}(" in copy.read_text(), (rel, name)
     for d in (1, 2, 3, 100, 20958, 1 << 20):
         assert wire.index_bits(d) == ref_wire.index_bits(d)
         for nnz in (0, 1, 17, d):
@@ -105,6 +153,10 @@ def test_wire_and_theory_copies_match_reference():
 @pytest.mark.parametrize("d", [1, 7, 128, 1000, 20958])
 def test_wire_bits_match_reference_exactly(d):
     pairs = [(T.Identity(), R.Identity()),
+             (T.TopK(k=3), R.TopK(k=3)),
+             (T.TopK(k=d // 20 + 1), R.TopK(k=d // 20 + 1)),
+             (T.RandomDithering(), R.RandomDithering()),
+             (T.RandomDithering(s=16), R.RandomDithering(s=16)),
              (T.RandK(k=3), R.RandK(k=3)),
              (T.RandK(k=d // 20 + 1), R.RandK(k=d // 20 + 1)),
              (T.BlockRandK(ratio=0.1), R.BlockRandK(ratio=0.1)),
@@ -200,6 +252,56 @@ def test_compress_given_reference_indices_matches_reference():
         np.testing.assert_array_equal(to_numpy(got), ref)
 
 
+def test_topk_and_dithering_given_reference_draws_match_reference():
+    d = 37
+    x = numpy_inputs(8, 1, (3, d))[0]
+    x[1] = 0.0                       # a zero row: dithering sends zeros
+    keys = [jax.random.key(10 + i) for i in range(3)]
+    topk = np.stack([np.array(R.TopK(k=5).compress(k, jnp.asarray(x[i])))
+                     for i, k in enumerate(keys)])
+    comp = T.TopK(k=5)
+    assert comp.draw(torch.Generator(), 3, d) is None
+    np.testing.assert_array_equal(
+        to_numpy(comp.compress(torch.from_numpy(x), None)), topk)
+    rd = R.RandomDithering(s=4)
+    dith = np.stack([np.array(rd.compress(k, jnp.asarray(x[i])))
+                     for i, k in enumerate(keys)])
+    u = np.stack([np.array(jax.random.uniform(k, (d,))) for k in keys])
+    got = T.RandomDithering(s=4).compress(torch.from_numpy(x),
+                                          torch.from_numpy(u))
+    np.testing.assert_allclose(to_numpy(got), dith, rtol=1e-6, atol=1e-7)
+    assert not np.any(to_numpy(got)[1])
+
+
+def test_dithering_is_unbiased():
+    gen = torch.Generator().manual_seed(5)
+    comp = T.RandomDithering(s=2)
+    n, d, draws = 3, 11, 6000
+    x = torch.from_numpy(numpy_inputs(9, 1, (n, d))[0])
+    total = torch.zeros(n, d)
+    for _ in range(draws):
+        u = comp.draw(gen, n, d)
+        assert u.shape == (n, d) and u.dtype == torch.float32
+        total += comp.compress(x, u)
+    # each coordinate is norm/s times a Bernoulli step: variance <=
+    # (norm/s)^2 / 4; 6000 draws, 5 sigma
+    norm = torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    assert torch.all((total / draws - x).abs()
+                     <= 5 * (norm / 2) / 2 / np.sqrt(draws))
+
+
+def test_make_compressor_matches_reference_registry():
+    for name in ("identity", "randk", "block_randk", "topk", "dithering"):
+        for kw in ({}, {"k": 7}, {"ratio": 0.2, "block_size": 16},
+                   {"s": 8}):
+            t, r = T.make_compressor(name, 500, **kw), R.make_compressor(
+                name, 500, **kw)
+            assert type(t).__name__ == type(r).__name__
+            assert dataclasses.asdict(t) == dataclasses.asdict(r)
+    with pytest.raises(ValueError, match="unknown compressor"):
+        T.make_compressor("natural", 10)
+
+
 def test_batch_indices_in_range_and_distinct_without_replacement():
     gen = torch.Generator().manual_seed(4)
     idx = T.sample_batch_indices(gen, 6, 9, 4, replace=False)
@@ -255,12 +357,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    for sub in ("core", "kernels", "fl", "obs", "launch", "training"):
+        assert any(f.parent.name == sub for f in files), sub
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (path, mod)
     code = ("import sys, repro_torch, repro_torch.convert, "
-            "repro_torch.kernels.build, repro_torch.kernels.dasha_update; "
+            "repro_torch.kernels.build, repro_torch.kernels.dasha_update, "
+            "repro_torch.fl, repro_torch.obs, repro_torch.training.metrics, "
+            "repro_torch.launch.async_train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -1,6 +1,7 @@
-"""The port's three update kernels on the CPU: their plain PyTorch
-versions against the JAX package's Pallas kernels run in interpret mode,
-the op layer's routing, and the wrappers' refusals.
+"""The port's kernels on the CPU (the three updates and the async
+server's buffered commit): their plain PyTorch versions against the JAX
+package's Pallas kernels run in interpret mode, the op layer's routing,
+and the wrappers' refusals.
 
 The CUDA kernels themselves build and run only on a card; there
 ``chip_smoke.py`` holds each to its plain version.  Here the same CUDA
@@ -12,7 +13,11 @@ versions bit for bit.
 Tolerance (kernel level): rtol = atol = 1e-6.  Both sides compute the
 Pallas body's operations in float32 from the same inputs and the same
 coefficients; the only freedom is XLA's fusion of the interpret-mode
-body, worth an ulp on values of order one.
+body, worth an ulp on values of order one.  The buffered commit sums
+``K`` rows, which XLA's ``jnp.sum`` orders as it likes and the plain
+version takes in order; there rtol = 1e-5, atol = 1e-6, as the
+reference's own test of its kernel against ``g + (w @ m) / n``
+(tests/test_fl.py).
 """
 import ctypes
 import re
@@ -25,6 +30,7 @@ import torch
 from _torch_parity import numpy_inputs, to_numpy, torch_one_thread  # noqa: F401
 
 from repro.kernels import dasha_update as pallas
+from repro.kernels import ops as pallas_ops
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import dasha_update as kernels
 
@@ -72,6 +78,64 @@ def test_tail_plain_version_matches_pallas(d):
     refs = pallas.dasha_tail_batched_pallas(*xs, MASK, a=0.07, pa=0.37,
                                             interpret=True)
     _close(outs, refs)
+
+
+COMMIT_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _commit_inputs(seed, kk, d, zero_rows):
+    g, = numpy_inputs(seed, 1, (d,))
+    m_buf, = numpy_inputs(seed + 1, 1, (kk, d))
+    w = np.random.default_rng(seed).uniform(0.2, 1.0, kk).astype(np.float32)
+    w[kk - zero_rows:] = 0.0            # the reference's padding rows
+    return g, m_buf, w
+
+
+@pytest.mark.parametrize("kk", [1, 5, 17])
+@pytest.mark.parametrize("d", [1, 7, 129, 2051])
+def test_buffered_commit_plain_version_matches_pallas(d, kk):
+    """Against ``repro.kernels.ops.buffered_commit_op`` (the Pallas kernel
+    in interpret mode) and against the reference's jnp formula."""
+    g, m_buf, w = _commit_inputs(d + kk, kk, d, zero_rows=kk // 3)
+    got = to_numpy(ref.buffered_commit_ref(
+        torch.from_numpy(g), torch.from_numpy(m_buf), torch.from_numpy(w),
+        n_nodes=6))
+    np.testing.assert_allclose(
+        got, to_numpy(pallas_ops.buffered_commit_op(g, m_buf, w, n_nodes=6)),
+        **COMMIT_TOL)
+    np.testing.assert_allclose(got, g + (w @ m_buf) / 6.0, **COMMIT_TOL)
+
+
+def test_buffered_commit_zero_weight_rows_add_exact_zeros():
+    """A weight-0 row leaves the sum as it was, to the bit: the port's
+    server commits only the rows it takes where the reference pads a
+    capacity-n buffer with weight-0 rows."""
+    g, m_buf, w = map(torch.from_numpy, _commit_inputs(3, 9, 300, 4))
+    full = ref.buffered_commit_ref(g, m_buf, w, n_nodes=9)
+    taken = ref.buffered_commit_ref(g, m_buf[:5], w[:5], n_nodes=9)
+    assert torch.equal(full, taken)
+    assert torch.equal(ref.buffered_commit_ref(g, m_buf[:0], w[:0],
+                                               n_nodes=9), g)
+
+
+def test_buffered_commit_op_routes_cpu_tensors_to_the_plain_version():
+    g, m_buf, w = map(torch.from_numpy, _commit_inputs(4, 5, 40, 1))
+    kernels.reset_launches()
+    assert torch.equal(ops.buffered_commit_op(g, m_buf, w, n_nodes=5),
+                       ref.buffered_commit_ref(g, m_buf, w, n_nodes=5))
+    assert kernels.launches["buffered_commit"] == 0
+
+
+def test_buffered_commit_wrapper_takes_cuda_tensors_only():
+    g, m_buf, w = torch.zeros(8), torch.zeros(3, 8), torch.ones(3)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.buffered_commit(g, m_buf, w, n_nodes=4)
+    with pytest.raises(ValueError, match=r"\(K, d\)"):
+        kernels.buffered_commit(g, torch.zeros(24), w, n_nodes=4)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.buffered_commit(g, m_buf, torch.ones(2), n_nodes=4)
+    with pytest.raises(TypeError, match="float32"):
+        kernels.buffered_commit(g, m_buf, w.double(), n_nodes=4)
 
 
 def test_plain_versions_freeze_non_participants_bitwise():
@@ -157,7 +221,7 @@ def test_kernel_sources_name_the_tpu_kernels_they_replace():
     src = (build.CSRC / "dasha_update.cu").read_text()
     for fn in ("dasha_update_batched_pallas",
                "dasha_page_update_batched_pallas",
-               "dasha_tail_batched_pallas"):
+               "dasha_tail_batched_pallas", "buffered_commit_pallas"):
         assert fn in src and hasattr(pallas, fn)
 
 
@@ -246,3 +310,18 @@ def test_cuda_source_on_the_host_matches_plain_versions(host_build, n, d,
         gn.data_ptr(), h.data_ptr(), gi.data_ptr(), mask.data_ptr(),
         *ptr[:2], n, d, inv_pa, a * inv_pa, None)
     same(2, ref.dasha_tail_batched_ref(gn, h, gi, mask, a=a, pa=pa))
+
+
+@pytest.mark.parametrize("kk", [0, 1, 5, 17, 100])
+@pytest.mark.parametrize("d", [1, 7, 129, 20958])
+def test_buffered_commit_source_on_the_host_matches_plain_version(
+        host_build, d, kk):
+    """The column loop and the row stride, against the plain version bit
+    for bit, zero-weight rows included."""
+    g, m_buf, w = map(torch.from_numpy,
+                      _commit_inputs(d + kk, kk, d, zero_rows=kk // 5))
+    out = torch.full((d,), float("nan"))
+    assert host_build.buffered_commit(
+        g.data_ptr(), m_buf.data_ptr(), w.data_ptr(), out.data_ptr(), kk, d,
+        1.0 / 7, None) == 0
+    assert torch.equal(out, ref.buffered_commit_ref(g, m_buf, w, n_nodes=7))
