@@ -7,8 +7,11 @@ The main paths are Algorithm 1 of the paper (DASHA-PP rounds of all
 four variants, with lines 9-11 of each round in the port's hand-written
 CUDA kernels, ``src/repro_torch/kernels/csrc/dasha_update.cu``), the
 asynchronous server of ``python -m repro_torch.launch.async_train``
-(whose every commit runs the buffered-commit kernel) and the
-hierarchical fleet.  Phases, each printed as one JSON line:
+(whose every commit runs the buffered-commit kernel), the hierarchical
+fleet, and the LM trainer of ``python -m repro_torch.launch.train`` on
+granite-3-2b at full width (the sharded engine, its sparse wire in the
+tracker and payload-blocks kernels).  Phases, each printed as one JSON
+line:
 
 1. device   -- the card, as ``nvidia-smi`` and torch see it;
 2. build    -- ``nvcc`` builds the kernels from the checkout (sm_90a);
@@ -34,13 +37,31 @@ hierarchical fleet.  Phases, each printed as one JSON line:
                equal event logs, states allclose;
 8. fleet    -- a depth-1 edge-aggregator fleet at full width (gradient,
                10 rounds): the wire-bits ledger reconciles, ms per round;
-9. the card's ``nvidia-smi`` line, the ``kernels`` line, and the ``ok``
+9. kernel   -- the sparse wire's four kernels (and the batched update in
+               its per-leaf form) at granite-3-2b's ``w_gate`` and
+               ``embed`` leaves, 8 layers, 4 nodes, ratio 1/64, blocks of
+               128: equal to their plain versions, times beside bounds;
+10. train   -- ``build_trainer`` of the train CLI at full width, 8 of 40
+               layers (memory), bf16, 4 nodes x 2 sequences of 4,096,
+               p_a 0.5: gradient, mvr and page on the sparse wire and mvr
+               on ``dense_psum``, 3 steps each through ``loop.train``: one
+               launch per leaf and step of the wire's kernels, ms per
+               step, peak memory, loss, grad norm, participants, bits;
+11. train-breakdown -- ``torch.profiler`` over one node's gradient and
+               one engine update: their times, the device's busy share,
+               the top kernels;
+12. train-trajectory -- the smoke trainer (float32) on the card and on the
+               CPU from the same weights, batches and draws, 5 steps per
+               variant, held allclose;
+13. train-cli -- ``python -m repro_torch.launch.train --smoke`` on the card;
+14. the card's ``nvidia-smi`` line, the ``kernels`` line, and the ``ok``
    line, last.
 
 Any failed check raises, so the script exits non-zero and prints no
 ``ok`` line; it does so at once without a CUDA device.
 """
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -55,11 +76,17 @@ import torch  # noqa: E402
 import numpy as np  # noqa: E402
 
 import repro_torch as rt  # noqa: E402
+import repro_torch.training.trainer  # noqa: E402,F401
 from repro_torch import fl  # noqa: E402
+from repro_torch import models as rt_models  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import dasha_update as kernels  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.launch import async_train  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.training import loop as train_loop  # noqa: E402
+from repro_torch.training.metrics import MetricsLogger  # noqa: E402
+from repro_torch.training.trainer import per_node_value_and_grads  # noqa: E402,E501
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.obs import monitors  # noqa: E402
 
@@ -97,6 +124,42 @@ KERNELS = {
 }
 COMMIT = "buffered_commit"
 COMMIT_REPLACES = "src/repro/kernels/dasha_update.py:405"
+# The LM trainer at full width (granite-3-2b, cut to 8 of 40 layers for
+# memory), and the sparse wire's kernels at its leaves.
+TRAIN_LAYERS = 8
+TRAIN_NODES = 4
+TRAIN_SEQ, TRAIN_PER_NODE = 4096, 2
+TRAIN_STEPS = 3
+TRAIN_RATIO, TRAIN_BLOCK = 1 / 64, 128
+TRAIN_PHASES = (("gradient", "sparse_allgather"), ("mvr", "sparse_allgather"),
+                ("page", "sparse_allgather"), ("mvr", "dense_psum"))
+TRAIN_TRAJ_STEPS = 5
+# card vs CPU, float32 smoke trainer: cuBLAS and the CPU sum the model's
+# products in other orders, index_add_ adds repeated blocks in another
+# order on the card, and the differences travel through 5 steps
+TRAIN_TRAJ_TOL = dict(rtol=1e-4, atol_scale=1e-4)
+SPARSE_LEAVES = ("layers.mlp.w_gate", "embed")
+# name -> (TPU kernel it replaces, (n, D) transfers, float ops per element,
+# device scalars read besides the (n,) mask)
+SPARSE_KERNELS = {
+    "dasha_h_update": ("src/repro/kernels/dasha_update.py:311", 4, 7, 0),
+    "dasha_page_h_update": ("src/repro/kernels/dasha_update.py:354", 6, 12,
+                            1),
+    # per selected element: reads, float ops (the write and the indices
+    # counted apart)
+    "dasha_payload_blocks": ("src/repro/kernels/dasha_update.py:456", 4, 9,
+                             0),
+    "dasha_page_payload_blocks": ("src/repro/kernels/dasha_update.py:513",
+                                  6, 14, 1),
+}
+WIRE_KERNELS = {("page", True): ("dasha_page_h_update",
+                                 "dasha_page_payload_blocks"),
+                ("page", False): ("dasha_page_update_batched",),
+                ("gradient", True): ("dasha_h_update",
+                                     "dasha_payload_blocks"),
+                ("gradient", False): ("dasha_update_batched",),
+                ("mvr", True): ("dasha_h_update", "dasha_payload_blocks"),
+                ("mvr", False): ("dasha_update_batched",)}
 KERNEL_OF = {"gradient": "dasha_update_batched",
              "mvr": "dasha_update_batched",
              "page": "dasha_page_update_batched",
@@ -567,6 +630,335 @@ def phase_fleet(dev, prob, comp, samp):
     fs.store.close()
 
 
+def train_args(variant, aggregation, *extra):
+    """The train CLI's flags of one full-width phase."""
+    return train_cli.build_parser().parse_args(
+        ["--variant", variant, "--aggregation", aggregation, "--ratio",
+         repr(TRAIN_RATIO), "--nodes", str(TRAIN_NODES), "--p-page", "0.5",
+         *extra])
+
+
+def full_width_arch():
+    return rt_models.get_config("granite-3-2b").with_overrides(
+        num_layers=TRAIN_LAYERS)
+
+
+def phase_sparse_kernels(dev, name, flush):
+    """The sparse wire's kernels at granite's largest leaf (``w_gate``)
+    and at ``embed``, 4 nodes, against their plain versions; and the
+    batched update in the per-leaf form the dense wires give it.
+    Returns the ``w_gate`` rows of the kernels line."""
+    mem_rate, f32_rate = card_rates(name)
+    shapes = rt_models.param_shapes(full_width_arch())
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    hp = dict(b=0.5 / 1.5, a=0.5 / (2 * (1 / TRAIN_RATIO - 1) + 1), pa=0.5)
+    p_page = 0.125
+    coins = [torch.zeros(1, device=dev), torch.ones(1, device=dev)]
+    rows = {}
+    for leaf in SPARSE_LEAVES:
+        n, d = TRAIN_NODES, int(np.prod(shapes[leaf]))
+        bs, nb, kb = rt.core.variants.block_plan(d, TRAIN_BLOCK, TRAIN_RATIO)
+        scale = nb / kb
+        gn, go, bn, bo, h, gi = (torch.randn(n, d, generator=gen, device=dev)
+                                 for _ in range(6))
+        mask = torch.tensor([1.0, 0.0, 1.0, 1.0], device=dev)
+        idx = torch.stack([torch.randperm(nb, generator=gen, device=dev)[:kb]
+                           for _ in range(n)]).to(torch.int32)
+        blk = dict(hp, scale=scale, block_size=bs)
+        cases = {
+            "dasha_h_update": [(
+                lambda: kernels.dasha_h_update(gn, go, h, mask, b=hp["b"],
+                                               pa=hp["pa"]),
+                lambda: ref.dasha_h_update_ref(gn, go, h, mask, b=hp["b"],
+                                               pa=hp["pa"]))],
+            "dasha_page_h_update": [(
+                lambda c=c: kernels.dasha_page_h_update(
+                    gn, go, bn, bo, h, mask, c, b=hp["b"], pa=hp["pa"],
+                    p_page=p_page),
+                lambda c=c: ref.dasha_page_h_update_ref(
+                    gn, go, bn, bo, h, mask, c[0], b=hp["b"], pa=hp["pa"],
+                    p_page=p_page)) for c in coins],
+            "dasha_payload_blocks": [(
+                lambda: kernels.dasha_payload_blocks(gn, go, h, gi, idx,
+                                                     **blk),
+                lambda: ref.dasha_payload_blocks_ref(gn, go, h, gi, idx,
+                                                     **blk))],
+            "dasha_page_payload_blocks": [(
+                lambda c=c: kernels.dasha_page_payload_blocks(
+                    gn, go, bn, bo, h, gi, idx, c, **blk, p_page=p_page),
+                lambda c=c: ref.dasha_page_payload_blocks_ref(
+                    gn, go, bn, bo, h, gi, idx, c[0], **blk,
+                    p_page=p_page)) for c in coins],
+        }
+        for kname, pairs in cases.items():
+            err = 0.0
+            for kernel_fn, plain_fn in pairs:
+                before = kernels.launches[kname]
+                out = kernel_fn()
+                torch.cuda.synchronize()
+                check(kernels.launches[kname] == before + 1,
+                      f"{kname} counted its launch")
+                plain = plain_fn()
+                check(out.shape == plain.shape, f"{kname} output shape")
+                err = max(err, (out - plain).abs().max().item())
+                del out, plain
+            # exact: --fmad=false, each operation rounded alone on both
+            check(err == 0.0, f"{kname} at {leaf}: max |kernel - plain| = "
+                              f"{err}")
+            kernel_fn, plain_fn = pairs[-1]
+            ms, plain_ms = time_ms(kernel_fn, flush), time_ms(plain_fn,
+                                                              flush)
+            replaces, transfers, flops, scalars = SPARSE_KERNELS[kname]
+            if "payload" in kname:
+                # the selected elements inside the row (this run's
+                # indices), each input read once; the (n, kb, bs) output
+                # and the indices
+                inside = int(((idx.long()[..., None] * bs
+                               + torch.arange(bs, device=dev)) < d).sum())
+                nbytes = (transfers * inside + n * kb * bs + n * kb
+                          + scalars) * 4
+                work = flops * inside
+            else:
+                nbytes = (transfers * n * d + n + scalars) * 4
+                work = flops * n * d
+            bytes_ms = nbytes / mem_rate * 1e3
+            ops_ms = work / f32_rate * 1e3
+            fields = dict(
+                name=kname, route="cuda", source=SOURCE, replaces=replaces,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=None, bytes=nbytes)
+            emit("kernel", **fields, leaf=leaf, shape=[n, d],
+                 blocks=[nb, bs], kb=kb, tolerance="exact")
+            if leaf == SPARSE_LEAVES[0]:
+                rows[kname] = fields
+        if leaf == SPARSE_LEAVES[0]:
+            # the dense wires' per-leaf form of the batched update
+            fn = lambda: kernels.dasha_update_batched(gn, go, h, gi, mask,
+                                                      **hp)
+            before = kernels.launches["dasha_update_batched"]
+            outs = fn()
+            torch.cuda.synchronize()
+            check(kernels.launches["dasha_update_batched"] == before + 1,
+                  "dasha_update_batched counted its launch")
+            err = max((o - r).abs().max().item() for o, r in zip(
+                outs, ref.dasha_update_batched_ref(gn, go, h, gi, mask,
+                                                   **hp)))
+            check(err == 0.0, f"dasha_update_batched per leaf: {err}")
+            del outs
+            nbytes = (7 * n * d + n) * 4
+            emit("kernel", name="dasha_update_batched", route="cuda",
+                 source=SOURCE,
+                 replaces="src/repro/kernels/dasha_update.py:101",
+                 max_abs_err=err, ms=time_ms(fn, flush),
+                 plain_ms=time_ms(lambda: ref.dasha_update_batched_ref(
+                     gn, go, h, gi, mask, **hp), flush),
+                 bound_ms=nbytes / mem_rate * 1e3, bound_by="bytes",
+                 library_ms=None, bytes=nbytes, leaf=leaf, shape=[n, d],
+                 form="per leaf, one row per node (the flat kernel)",
+                 tolerance="exact")
+        del gn, go, bn, bo, h, gi, idx
+        torch.cuda.empty_cache()
+    return rows
+
+
+class Recorder(MetricsLogger):
+    """The loop's logger, keeping every row (printing none)."""
+
+    def __init__(self):
+        super().__init__(print_every=1 << 30)
+        self.rows = []
+
+    def log(self, step, **metrics):
+        super().log(step, **metrics)
+        self.rows.append(dict(step=step, wall_s=time.time() - self._t0,
+                              **{k: float(v) for k, v in metrics.items()}))
+
+
+def phase_train(dev, variant, aggregation):
+    """One full-width phase through the CLI's ``build_trainer`` and the
+    loop's ``train``; returns (launches, trainer, state, batch)."""
+    args = train_args(variant, aggregation, "--device", str(dev))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, state, data, arch = train_cli.build_trainer(
+        args, full_width_arch(), seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_NODES * TRAIN_PER_NODE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    stream = train_cli.batches(args, arch, data)
+    rec = Recorder()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state = train_loop.train(trainer, state, stream, TRAIN_STEPS,
+                             logger=rec, log_every=1, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    leaves = len(trainer.engine.shapes)
+    sparse = aggregation == "sparse_allgather"
+    expect = {k: leaves * TRAIN_STEPS for k in WIRE_KERNELS[variant, sparse]}
+    check({k: v for k, v in counts.items() if v} == expect,
+          f"train {variant} {aggregation}: one launch per leaf and step of "
+          f"{sorted(expect)}, got {counts}")
+    rows = rec.rows
+    check(len(rows) == TRAIN_STEPS and all(
+        np.isfinite([r["loss"], r["grad_norm"], r["bits_sent"]]).all()
+        for r in rows), f"train {variant}: finite metrics")
+    check(all(all_finite(v) for v in state.params.values()),
+          f"train {variant}: finite params")
+    walls = [r["wall_s"] for r in rows]
+    bits_node = trainer.engine.message_bits_per_node()
+    check(all(r["bits_sent"] == r["participants"] * bits_node for r in rows),
+          f"train {variant}: bits = participants x bits per node")
+    emit("train", variant=variant, wire=aggregation, steps=TRAIN_STEPS,
+         layers=arch.num_layers, d_model=arch.d_model,
+         heads=arch.num_heads, kv_heads=arch.num_kv_heads, d_ff=arch.d_ff,
+         vocab=arch.vocab_size, dtype=arch.dtype,
+         params=rt_models.count_params(state.params), nodes=TRAIN_NODES,
+         global_batch=data.global_batch, seq_len=data.seq_len,
+         launches=counts, setup_s=setup_s, seconds=seconds,
+         ms_first_step=walls[0] * 1e3,
+         ms_per_step=(walls[-1] - walls[0]) / (len(walls) - 1) * 1e3,
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+         loss=[r["loss"] for r in rows],
+         grad_norm=[r["grad_norm"] for r in rows],
+         participants=[r["participants"] for r in rows],
+         bits_sent=[r["bits_sent"] for r in rows], bits_per_node=bits_node)
+    return counts, trainer, state, train_loop.to_device(next(stream), dev)
+
+
+def busy_share(prof):
+    """(device-busy ms, kernels): the union of the kernels' intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3, len(spans)
+
+
+def phase_train_breakdown(dev, trainer, state, batch):
+    """Where a step goes: the node gradients against the engine, and the
+    device's busy share inside one node's gradient."""
+    from torch.profiler import ProfilerActivity, profile
+    params = state.params
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    per_node_value_and_grads(trainer.model.loss, params, batch)
+    torch.cuda.synchronize()
+    grads_ms = (time.perf_counter() - t0) * 1e3
+    _, _, g_new, g_old = trainer.full_pass(params, params, batch)
+    draws = trainer.engine.draw(train_loop.round_generator(SEED, 99, dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.engine.node_update(g_new, g_old, state.dasha, draws)
+    torch.cuda.synchronize()
+    engine_ms = (time.perf_counter() - t0) * 1e3
+    del g_new, g_old
+    node = {k: v[:1] for k, v in batch.items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        per_node_value_and_grads(trainer.model.loss, params, node)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_ms, launches = busy_share(prof)
+    check(launches > 0, "the profiler saw the card's kernels")
+    top = []
+    for avg in prof.key_averages():
+        t = getattr(avg, "self_device_time_total",
+                    getattr(avg, "self_cuda_time_total", 0.0))
+        if t > 0 and avg.device_type == torch.autograd.DeviceType.CUDA:
+            top.append([avg.key[:60], t / 1e3, avg.count])
+    top.sort(key=lambda r: -r[1])
+    emit("train-breakdown", variant=trainer.cfg.dasha.variant,
+         wire=trainer.cfg.dasha.aggregation, grads_ms=grads_ms,
+         gradients=TRAIN_NODES, engine_ms=engine_ms,
+         node_gradient_wall_ms=wall_ms, node_gradient_device_ms=device_ms,
+         device_busy_share=device_ms / wall_ms, kernel_launches=launches,
+         top_kernels=top[:8])
+
+
+def phase_train_trajectory(dev):
+    """The smoke trainer (float32) on the card and on the CPU from the
+    same weights, batches and draws (drawn on the CPU)."""
+    for variant, aggregation in TRAIN_PHASES:
+        args = train_args(variant, aggregation, "--smoke", "--device", "cpu")
+        cpu, st_c, data, arch = train_cli.build_trainer(args)
+        params = {k: v.to(dev) for k, v in st_c.params.items()}
+        card = rt.training.trainer.Trainer(
+            rt_models.Model(arch, params), cpu.cfg, num_nodes=TRAIN_NODES)
+        st_g = card.init()
+        stream = train_cli.batches(args, arch, data)
+        kernels.reset_launches()
+        mets = []
+        for t in range(TRAIN_TRAJ_STEPS):
+            batch = train_loop.to_device(next(stream), "cpu")
+            draws = cpu.engine.draw(
+                train_loop.round_generator(SEED, t, "cpu"))
+            st_c, m_c = cpu.train_step(st_c, batch, draws)
+            st_g, m_g = card.train_step(
+                st_g, {k: v.to(dev) for k, v in batch.items()},
+                draws.to(dev))
+            mets.append((m_c, m_g))
+        torch.cuda.synchronize()
+        sparse = aggregation == "sparse_allgather"
+        want = {k: len(card.engine.shapes) * TRAIN_TRAJ_STEPS
+                for k in WIRE_KERNELS[variant, sparse]}
+        check({k: v for k, v in kernels.launches.items() if v} == want,
+              f"train-trajectory {variant}: the card's steps went through "
+              f"{sorted(want)}: {kernels.launches}")
+        for m_c, m_g in mets:
+            check(float(m_c.bits_sent) == float(m_g.bits_sent)
+                  and float(m_c.participants) == float(m_g.participants),
+                  f"train-trajectory {variant}: equal bits and participants")
+        errs, worst = {}, {}
+        for part in ("params", "g", "g_i", "h_i"):
+            a_tree = st_g.params if part == "params" else getattr(
+                st_g.dasha, part)
+            b_tree = st_c.params if part == "params" else getattr(
+                st_c.dasha, part)
+            for k, b in b_tree.items():
+                a = a_tree[k].cpu()
+                err = (a - b).abs().max().item()
+                scale = b.abs().max().item()
+                ok = torch.allclose(a, b, rtol=TRAIN_TRAJ_TOL["rtol"],
+                                    atol=TRAIN_TRAJ_TOL["atol_scale"]
+                                    * scale)
+                check(ok, f"train-trajectory {variant}: {part}/{k} card vs "
+                          f"CPU: max abs err {err} (leaf max {scale})")
+                if err >= errs.get(part, -1.0):
+                    errs[part], worst[part] = err, f"{part}/{k}"
+        emit("train-trajectory", variant=variant, wire=aggregation,
+             steps=TRAIN_TRAJ_STEPS, layers=arch.num_layers,
+             d_model=arch.d_model, nodes=TRAIN_NODES,
+             coins=[bool(cpu.engine.draw(train_loop.round_generator(
+                 SEED, t, "cpu")).coin) for t in range(TRAIN_TRAJ_STEPS)]
+             if variant == "page" else None,
+             max_abs_err_by_part=errs, worst_leaf=worst,
+             tolerance=TRAIN_TRAJ_TOL)
+
+
+def phase_train_cli():
+    """The train CLI's smoke run on the card, as a user starts it."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+         "--steps", "2"], capture_output=True, text=True, timeout=300,
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    rows = [ln for ln in proc.stdout.splitlines() if ln.startswith("[step")]
+    check(proc.returncode == 0 and len(rows) == 1,
+          f"train CLI: rc {proc.returncode}\n{proc.stdout}\n{proc.stderr}")
+    emit("train-cli", returncode=proc.returncode, rows=rows,
+         seconds=time.perf_counter() - t0)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path needs one",
@@ -590,6 +982,24 @@ def main():
     torch.cuda.empty_cache()
     phase_async_trajectory(dev)
     phase_fleet(dev, prob, comp, samp)
+    del prob
+    torch.cuda.empty_cache()
+    flush = torch.zeros(128 << 20 >> 2, device=dev)
+    rows.update(phase_sparse_kernels(dev, name, flush))
+    del flush
+    for kname in SPARSE_KERNELS:
+        launches[kname] = 0
+    for variant, aggregation in TRAIN_PHASES:
+        counts, trainer, state, batch = phase_train(dev, variant,
+                                                    aggregation)
+        for kname, count in counts.items():
+            launches[kname] = launches.get(kname, 0) + count
+        if (variant, aggregation) == ("mvr", "sparse_allgather"):
+            phase_train_breakdown(dev, trainer, state, batch)
+        del trainer, state, batch
+        torch.cuda.empty_cache()
+    phase_train_trajectory(dev)
+    phase_train_cli()
     for kname, count in launches.items():
         check(count > 0, f"the main path launched {kname}")
         rows[kname]["launches"] = count

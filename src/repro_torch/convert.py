@@ -1,4 +1,5 @@
-"""Reference arrays into the port: problem data, engine state and draws.
+"""Reference arrays into the port: problem data, engine state and draws,
+and the LM trainer's parameters and state.
 
 Takes numpy arrays or anything ``np.array`` accepts (a JAX array among
 them) and always copies.  ``np.asarray`` of a JAX array is a read-only
@@ -9,12 +10,13 @@ of the JAX package.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.dasha_pp import DashaPPState
+from repro_torch.core.sharded import ShardedDashaState
 from repro_torch.core.problems import (DistributedProblem,
                                        LogisticSigmoidProblem,
                                        NonconvexSoftmaxProblem,
@@ -26,9 +28,13 @@ Tensor = torch.Tensor
 
 
 def tensor(x, device="cuda", dtype: Optional[torch.dtype] = None) -> Tensor:
-    """A tensor holding a copy of array ``x``."""
-    return torch.from_numpy(np.array(x)).to(resolve_device(device),
-                                            dtype=dtype)
+    """A tensor holding a copy of array ``x`` (a bfloat16 array goes
+    through float32, which holds it exactly)."""
+    arr = np.array(x)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            resolve_device(device), dtype=dtype or torch.bfloat16)
+    return torch.from_numpy(arr).to(resolve_device(device), dtype=dtype)
 
 
 def problem(ref_problem, device="cuda") -> DistributedProblem:
@@ -73,3 +79,53 @@ def round_draws(mask, batch_idx=None, coin=None, comp_idx=None,
         mask=tensor(mask, device, torch.bool), batch_idx=idx(batch_idx),
         coin=None if coin is None else tensor(coin, device, torch.bool),
         comp_idx=comp)
+
+
+def params_from_jax(tree, device="cuda") -> Dict[str, Tensor]:
+    """A reference parameter pytree (nested dicts of arrays) as the port's
+    flat ``{dotted name: tensor}`` dict, in ``jax.tree.leaves`` order
+    (keys sorted at every level)."""
+    flat: Dict[str, Tensor] = {}
+
+    def walk(node, prefix):
+        for key in sorted(node):
+            if isinstance(node[key], dict):
+                walk(node[key], prefix + key + ".")
+            else:
+                flat[prefix + key] = tensor(node[key], device)
+
+    walk(tree, "")
+    return flat
+
+
+def train_state_from_jax(ref_state, device="cuda"):
+    """A copy of a reference ``TrainState`` (``repro.training.trainer``):
+    params, the engine's ``g``/``g_i``/``h_i``, the server optimizer's
+    state and the step counters.  The gradient variant's cache carries
+    over from the second round on (before it the reference's cache is
+    zeros it does not read, the port's ``None``)."""
+    from repro_torch.training import optim
+    from repro_torch.training.trainer import TrainState
+
+    def count(x):
+        return int(np.array(x))
+
+    d = ref_state.dasha
+    dasha = ShardedDashaState(g=params_from_jax(d.g, device),
+                              g_i=params_from_jax(d.g_i, device),
+                              h_i=params_from_jax(d.h_i, device),
+                              step=count(d.step))
+    opt = ref_state.opt
+    if type(opt).__name__ == "SGDState":
+        opt = optim.SGDState(count=count(opt.count))
+    else:
+        opt = optim.AdamWState(count=count(opt.count),
+                               mu=params_from_jax(opt.mu, device),
+                               nu=params_from_jax(opt.nu, device))
+    step = count(ref_state.step)
+    cache = None
+    if len(ref_state.cache) and step > 0:
+        losses, grads = ref_state.cache
+        cache = (tensor(losses, device), params_from_jax(grads, device))
+    return TrainState(params=params_from_jax(ref_state.params, device),
+                      dasha=dasha, opt=opt, step=step, cache=cache)

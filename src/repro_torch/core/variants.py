@@ -9,7 +9,10 @@ A :class:`VariantRule` holds
     against a :class:`~repro_torch.core.problems.DistributedProblem`);
 (c) oracle-call accounting;
 (d) the fused-kernel dispatch (``dasha_update`` for gradient and MVR,
-    ``dasha_page_update`` for PAGE, the tail alone for finite-MVR).
+    ``dasha_page_update`` for PAGE, the tail alone for finite-MVR), and
+    for the sharded engine the per-leaf forms (``fused_flat``) and the
+    sparse wire's split (``fused_flat_blocks``: the tracker pass and the
+    payload at the selected blocks, gradient, MVR and PAGE).
 
 **The random-draw seam.**  Torch cannot reproduce JAX's threefry bits,
 so a round's randomness is one explicit :class:`RoundDraws`: the
@@ -37,6 +40,7 @@ import torch
 
 from repro_torch.core.problems import sample_batch_indices, take_rows
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import block_positions
 
 Tensor = torch.Tensor
 
@@ -103,6 +107,43 @@ def block_plan(d: int, block_size: int, ratio: float
     return bs, nb, kb
 
 
+def block_select(flat: Tensor, block_idx: Tensor, block_size: int
+                 ) -> Tensor:
+    """Rows (n, d) -> the (n, kb, block_size) blocks named by
+    ``block_idx`` (n, kb), zero past ``d`` (``variants.py:155-165``
+    without the scale)."""
+    n, d = flat.shape
+    pos, inside = block_positions(block_idx, d, block_size)
+    vals = torch.gather(flat, 1, pos.reshape(n, -1)).reshape(pos.shape)
+    return torch.where(inside, vals, torch.zeros_like(vals))
+
+
+def block_scatter_add(base: Tensor, vals: Tensor, block_idx: Tensor,
+                      block_size: int) -> Tensor:
+    """``base`` (d,) plus ``vals`` (..., kb, block_size) added at the
+    blocks ``block_idx`` (..., kb); repeated blocks sum
+    (``variants.py:168-178``)."""
+    d = base.shape[0]
+    nb = -(-d // block_size)
+    blocks = torch.nn.functional.pad(base, (0, nb * block_size - d))
+    blocks = blocks.view(nb, block_size).index_add_(
+        0, block_idx.reshape(-1), vals.reshape(-1, block_size))
+    return blocks.view(-1)[:d]
+
+
+def block_scatter_rows(vals: Tensor, block_idx: Tensor, d: int,
+                       block_size: int) -> Tensor:
+    """Each node's blocks dense: (n, kb, block_size) at (n, kb) -> (n, d),
+    zero elsewhere (the per-node ``block_scatter_add`` into zeros)."""
+    n = vals.shape[0]
+    nb = -(-d // block_size)
+    rows = block_idx + nb * torch.arange(n, device=block_idx.device)[:, None]
+    out = torch.zeros((n * nb, block_size), dtype=vals.dtype,
+                      device=vals.device)
+    out.index_add_(0, rows.reshape(-1), vals.reshape(-1, block_size))
+    return out.view(n, nb * block_size)[:, :d]
+
+
 FLOAT_BITS = 32.0
 INDEX_BITS = 32.0
 
@@ -127,6 +168,21 @@ def message_bits(d: int, *, aggregation: str,
         return k * (FLOAT_BITS + INDEX_BITS)
     bs, _, kb = block_plan(d, block_size, compression_ratio)
     return kb * (bs * FLOAT_BITS + INDEX_BITS)
+
+
+def uplink_bits_per_node(d_total: int, *, aggregation: str,
+                         compression_ratio: Optional[float],
+                         block_size: int, p_a: float = 1.0,
+                         wire_format: str = "block_randk",
+                         dithering_levels: int = 4) -> float:
+    """Expected uplink bits per node per round (Tables 1-2 metric): a
+    node takes part with probability ``p_a`` and then pays
+    :func:`message_bits` (``variants.py:229``)."""
+    return p_a * message_bits(d_total, aggregation=aggregation,
+                              compression_ratio=compression_ratio,
+                              block_size=block_size,
+                              wire_format=wire_format,
+                              dithering_levels=dithering_levels)
 
 
 # ----------------------------------------------------------------------
@@ -159,6 +215,8 @@ class VariantRule:
     :data:`VARIANTS`."""
 
     name: str = ""
+    needs_coin: bool = False           # shared Bernoulli switch (page)
+    needs_minibatch: bool = False      # second (minibatch) gradient pair
     component_trackers: bool = False   # (n, m, d) h_ij state (finite_mvr)
 
     def k(self, ox: OracleBatch, h: Tensor, *, b: float,
@@ -185,6 +243,20 @@ class VariantRule:
         """Node-major (n, d) fused update -> (k, h_new, payload)."""
         raise NotImplementedError
 
+    def fused_flat(self, ox: OracleBatch, h, gi, part, *, b, a, pa,
+                   p_page: float = 1.0):
+        """The sharded engine's per-leaf fused update over the flattened
+        leaf rows (n, D) -> (h_new, payload) (``variants.py:302``; the
+        reference's flat (D,) form, one row per node)."""
+        raise NotImplementedError
+
+    def fused_flat_blocks(self, ox: OracleBatch, h, gi, part, block_idx, *,
+                          b, a, pa, scale, block_size, p_page: float = 1.0):
+        """The sparse wire's split over (n, D) rows: the tracker pass and
+        the payload at the (n, kb) selected blocks, times ``scale`` ->
+        (h_new, (n, kb, block_size) wire values)."""
+        raise NotImplementedError
+
 
 class GradientRule(VariantRule):
     """Alg. 2 (DASHA-PP): full local gradients at x^{t+1} and x^t."""
@@ -200,6 +272,19 @@ class GradientRule(VariantRule):
     def fused_batched(self, ox, h, gi, mask, *, b, a, pa, p_page=1.0):
         return ops.dasha_update_batched_op(ox.gn, ox.go, h, gi, mask,
                                            b=b, a=a, pa=pa)
+
+    def fused_flat(self, ox, h, gi, part, *, b, a, pa, p_page=1.0):
+        _, h_new, payload = self.fused_batched(ox, h, gi, part, b=b, a=a,
+                                               pa=pa)
+        return h_new, payload
+
+    def fused_flat_blocks(self, ox, h, gi, part, block_idx, *, b, a, pa,
+                          scale, block_size, p_page=1.0):
+        h_new = ops.dasha_h_update_op(ox.gn, ox.go, h, part, b=b, pa=pa)
+        vals = ops.dasha_payload_blocks_op(
+            ox.gn, ox.go, h, gi, block_idx, b=b, a=a, pa=pa, scale=scale,
+            block_size=block_size)
+        return h_new, vals
 
 
 class MvrRule(GradientRule):
@@ -222,6 +307,8 @@ class PageRule(VariantRule):
     """Alg. 3 (DASHA-PP-PAGE): a full pass with probability ``p_page``
     (one coin for all nodes), else a same-sample minibatch pair."""
     name = "page"
+    needs_coin = True
+    needs_minibatch = True
 
     def k(self, ox, h, *, b, p_page):
         return k_page(ox.gn, ox.go, ox.bn, ox.bo, h, ox.coin,
@@ -247,6 +334,21 @@ class PageRule(VariantRule):
         return ops.dasha_page_update_op(ox.gn, ox.go, ox.bn, ox.bo, h, gi,
                                         mask, ox.coin, b=b, a=a, pa=pa,
                                         p_page=p_page)
+
+    def fused_flat(self, ox, h, gi, part, *, b, a, pa, p_page=1.0):
+        _, h_new, payload = self.fused_batched(ox, h, gi, part, b=b, a=a,
+                                               pa=pa, p_page=p_page)
+        return h_new, payload
+
+    def fused_flat_blocks(self, ox, h, gi, part, block_idx, *, b, a, pa,
+                          scale, block_size, p_page=1.0):
+        h_new = ops.dasha_page_h_update_op(ox.gn, ox.go, ox.bn, ox.bo, h,
+                                           part, ox.coin, b=b, pa=pa,
+                                           p_page=p_page)
+        vals = ops.dasha_page_payload_blocks_op(
+            ox.gn, ox.go, ox.bn, ox.bo, h, gi, block_idx, ox.coin, b=b, a=a,
+            pa=pa, p_page=p_page, scale=scale, block_size=block_size)
+        return h_new, vals
 
 
 class FiniteMvrRule(VariantRule):

@@ -1,5 +1,6 @@
-"""PyTorch wrappers of the fused DASHA-PP update kernels and the async
-server's buffered commit.
+"""PyTorch wrappers of the fused DASHA-PP update kernels, the sparse
+wire's tracker and payload passes, and the async server's buffered
+commit.
 
 The kernels are CUDA C++ (``csrc/dasha_update.cu``), built and loaded by
 :mod:`.build` at first use.  Each wrapper checks its tensors (CUDA,
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -29,7 +30,11 @@ LIBRARY = "dasha_update"
 launches: Dict[str, int] = {"dasha_update_batched": 0,
                             "dasha_page_update_batched": 0,
                             "dasha_tail_batched": 0,
-                            "buffered_commit": 0}
+                            "buffered_commit": 0,
+                            "dasha_h_update": 0,
+                            "dasha_page_h_update": 0,
+                            "dasha_payload_blocks": 0,
+                            "dasha_page_payload_blocks": 0}
 """Kernel launches since the last :func:`reset_launches`, by kernel."""
 
 
@@ -46,6 +51,13 @@ _SIGNATURES = {
     "dasha_tail_batched": [_P] * 6 + [_I64, _I64] + [_F] * 2 + [_P],
     # g, m_buf, weights, out, K, d, inv_n, stream
     "buffered_commit": [_P] * 4 + [_I64, _I64, _F, _P],
+    # inputs, mask[, coin], h_new, n, d, b (or b/p_page), inv_pa, stream
+    "dasha_h_update": [_P] * 5 + [_I64, _I64] + [_F] * 2 + [_P],
+    "dasha_page_h_update": [_P] * 8 + [_I64, _I64] + [_F] * 2 + [_P],
+    # inputs, idx[, coin], out, n, d, kb, bs, b, inv_pa, a_inv_pa, scale,
+    # stream
+    "dasha_payload_blocks": [_P] * 6 + [_I64] * 4 + [_F] * 4 + [_P],
+    "dasha_page_payload_blocks": [_P] * 9 + [_I64] * 4 + [_F] * 4 + [_P],
 }
 
 
@@ -79,18 +91,21 @@ def _check(arrays: Dict[str, Tensor], mask: Tensor,
     return n, d
 
 
-def _check_operands(operands: Dict[str, Tuple[Tensor, Tuple[int, ...]]]
+def _check_operands(operands: Dict[str, Tuple[Tensor, Tuple[int, ...]]],
+                    dtypes: Optional[Dict[str, torch.dtype]] = None
                     ) -> None:
-    """Raise unless every tensor is a contiguous float32 tensor of its
-    shape on the first one's CUDA device (shapes and types are checked
-    for all operands before devices)."""
+    """Raise unless every tensor is a contiguous tensor of its shape and
+    type (float32 unless ``dtypes`` names another) on the first one's
+    CUDA device (shapes and types are checked for all operands before
+    devices)."""
     first = next(iter(operands.values()))[0]
     for name, (t, shape) in operands.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected shape {shape}, got "
                              f"{tuple(t.shape)}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        dtype = (dtypes or {}).get(name, torch.float32)
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     for name, (t, _) in operands.items():
         if t.device.type != "cuda" or t.device != first.device:
             raise ValueError(f"{name}: expected a tensor on {first.device} "
@@ -169,4 +184,89 @@ def buffered_commit(g: Tensor, m_buf: Tensor, weights: Tensor, *,
     out = torch.empty_like(g)
     _launch("buffered_commit", g.device, g.data_ptr(), m_buf.data_ptr(),
             weights.data_ptr(), out.data_ptr(), kk, d, 1.0 / n_nodes)
+    return out
+
+
+def dasha_h_update(gn: Tensor, go: Tensor, h: Tensor, mask: Tensor, *,
+                   b: float, pa: float) -> Tensor:
+    """Line 10 alone over (n, d): ``h + mask k/pa`` with the Algs. 2/5
+    ``k`` formed in registers and never written.  Returns ``h_new``."""
+    n, d = _check(dict(gn=gn, go=go, h=h), mask)
+    h_new = torch.empty_like(h)
+    _launch("dasha_h_update", gn.device, gn.data_ptr(), go.data_ptr(),
+            h.data_ptr(), mask.data_ptr(), h_new.data_ptr(), n, d, b,
+            1.0 / pa)
+    return h_new
+
+
+def dasha_page_h_update(gn: Tensor, go: Tensor, bn: Tensor, bo: Tensor,
+                        h: Tensor, mask: Tensor, coin: Tensor, *, b: float,
+                        pa: float, p_page: float) -> Tensor:
+    """Line 10 alone with the Alg. 3 ``k``; ``coin`` a (1,) float32 on
+    the device.  Returns ``h_new``."""
+    n, d = _check(dict(gn=gn, go=go, bn=bn, bo=bo, h=h), mask, coin)
+    h_new = torch.empty_like(h)
+    _launch("dasha_page_h_update", gn.device, gn.data_ptr(), go.data_ptr(),
+            bn.data_ptr(), bo.data_ptr(), h.data_ptr(), mask.data_ptr(),
+            coin.data_ptr(), h_new.data_ptr(), n, d, b / p_page, 1.0 / pa)
+    return h_new
+
+
+def _check_blocks(arrays: Dict[str, Tensor], block_idx: Tensor,
+                  coin: "Tensor | None", block_size: int
+                  ) -> Tuple[int, int, int]:
+    """(n, d, kb) of the payload-blocks operands; raises on what the
+    kernels do not take."""
+    first = next(iter(arrays.values()))
+    if first.dim() != 2 or block_idx.dim() != 2:
+        raise ValueError(f"expected (n, d) operands and (n, kb) indices, "
+                         f"got {tuple(first.shape)} and "
+                         f"{tuple(block_idx.shape)}")
+    if block_size < 1:
+        raise ValueError(f"block_size must be positive, got {block_size}")
+    n, d = first.shape
+    kb = block_idx.shape[1]
+    operands = {name: (t, (n, d)) for name, t in arrays.items()}
+    operands["block_idx"] = (block_idx, (n, kb))
+    if coin is not None:
+        operands["coin"] = (coin, (1,))
+    _check_operands(operands, dict(block_idx=torch.int32))
+    return n, d, kb
+
+
+def dasha_payload_blocks(gn: Tensor, go: Tensor, h: Tensor, gi: Tensor,
+                         block_idx: Tensor, *, b: float, a: float,
+                         pa: float, scale: float, block_size: int
+                         ) -> Tensor:
+    """The line-11 payload of Algs. 2/5 at the selected blocks only,
+    times ``scale``: row ``i`` of ``out`` (n, kb, block_size) holds
+    block ``block_idx[i, j]`` of node ``i``'s payload, zero past ``d``.
+    ``block_idx`` is (n, kb) int32 on the device."""
+    n, d, kb = _check_blocks(dict(gn=gn, go=go, h=h, gi=gi), block_idx,
+                             None, block_size)
+    inv_pa = 1.0 / pa
+    out = torch.empty((n, kb, block_size), dtype=gn.dtype, device=gn.device)
+    _launch("dasha_payload_blocks", gn.device, gn.data_ptr(), go.data_ptr(),
+            h.data_ptr(), gi.data_ptr(), block_idx.data_ptr(),
+            out.data_ptr(), n, d, kb, block_size, b, inv_pa, a * inv_pa,
+            scale)
+    return out
+
+
+def dasha_page_payload_blocks(gn: Tensor, go: Tensor, bn: Tensor,
+                              bo: Tensor, h: Tensor, gi: Tensor,
+                              block_idx: Tensor, coin: Tensor, *, b: float,
+                              a: float, pa: float, p_page: float,
+                              scale: float, block_size: int) -> Tensor:
+    """The Alg. 3 payload at the selected blocks, times ``scale``;
+    ``coin`` a (1,) float32 on the device."""
+    n, d, kb = _check_blocks(dict(gn=gn, go=go, bn=bn, bo=bo, h=h, gi=gi),
+                             block_idx, coin, block_size)
+    inv_pa = 1.0 / pa
+    out = torch.empty((n, kb, block_size), dtype=gn.dtype, device=gn.device)
+    _launch("dasha_page_payload_blocks", gn.device, gn.data_ptr(),
+            go.data_ptr(), bn.data_ptr(), bo.data_ptr(), h.data_ptr(),
+            gi.data_ptr(), block_idx.data_ptr(), coin.data_ptr(),
+            out.data_ptr(), n, d, kb, block_size, b / p_page, inv_pa,
+            a * inv_pa, scale)
     return out

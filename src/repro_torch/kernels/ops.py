@@ -1,7 +1,9 @@
-"""The op layer the engine calls for Algorithm 1 lines 9-11, and the
-async server for its commit.
+"""The op layer the engines call for Algorithm 1 lines 9-11 (dense, and
+split for the sparse wire), and the async server for its commit.
 
-The port of ``repro/kernels/ops.py:76-115`` and ``:177-186``.  Each op looks at where its
+The port of ``repro/kernels/ops.py:63-186``; the flat ops there
+(``dasha_update_op``, the sharded engine's per-leaf forms) are the
+batched ones here with one row per node.  Each op looks at where its
 tensors lie: on the CPU it runs the kernel's plain version
 (:mod:`.ref`); on a CUDA device it launches the kernel
 (:mod:`.dasha_update`), which raises if it cannot.  There is no other
@@ -74,3 +76,57 @@ def buffered_commit_op(g: Tensor, m_buf: Tensor, weights: Tensor, *,
                                        weights.to(torch.float32),
                                        n_nodes=n_nodes)
     return ref.buffered_commit_ref(g, m_buf, weights, n_nodes=n_nodes)
+
+
+def dasha_h_update_op(gn: Tensor, go: Tensor, h: Tensor, mask: Tensor, *,
+                      b: float, pa: float) -> Tensor:
+    """Line 10 alone over (n, d), Algs. 2/5: ``h_new``."""
+    if _on_cuda(gn):
+        return kernels.dasha_h_update(gn, go, h, mask.to(torch.float32),
+                                      b=b, pa=pa)
+    return ref.dasha_h_update_ref(gn, go, h, mask, b=b, pa=pa)
+
+
+def dasha_page_h_update_op(gn: Tensor, go: Tensor, bn: Tensor, bo: Tensor,
+                           h: Tensor, mask: Tensor, coin: Tensor, *,
+                           b: float, pa: float, p_page: float) -> Tensor:
+    """Line 10 alone over (n, d), Alg. 3; ``coin`` a 0-d tensor on the
+    same device."""
+    if _on_cuda(gn):
+        return kernels.dasha_page_h_update(
+            gn, go, bn, bo, h, mask.to(torch.float32),
+            coin.to(torch.float32).reshape(1), b=b, pa=pa, p_page=p_page)
+    return ref.dasha_page_h_update_ref(gn, go, bn, bo, h, mask, coin, b=b,
+                                       pa=pa, p_page=p_page)
+
+
+def dasha_payload_blocks_op(gn: Tensor, go: Tensor, h: Tensor, gi: Tensor,
+                            block_idx: Tensor, *, b: float, a: float,
+                            pa: float, scale: float, block_size: int
+                            ) -> Tensor:
+    """The Algs. 2/5 payload at the (n, kb) selected blocks, times
+    ``scale``: (n, kb, block_size)."""
+    if _on_cuda(gn):
+        return kernels.dasha_payload_blocks(
+            gn, go, h, gi, block_idx.to(torch.int32), b=b, a=a, pa=pa,
+            scale=scale, block_size=block_size)
+    return ref.dasha_payload_blocks_ref(gn, go, h, gi, block_idx, b=b, a=a,
+                                        pa=pa, scale=scale,
+                                        block_size=block_size)
+
+
+def dasha_page_payload_blocks_op(gn: Tensor, go: Tensor, bn: Tensor,
+                                 bo: Tensor, h: Tensor, gi: Tensor,
+                                 block_idx: Tensor, coin: Tensor, *,
+                                 b: float, a: float, pa: float,
+                                 p_page: float, scale: float,
+                                 block_size: int) -> Tensor:
+    """The Alg. 3 payload at the selected blocks, times ``scale``."""
+    if _on_cuda(gn):
+        return kernels.dasha_page_payload_blocks(
+            gn, go, bn, bo, h, gi, block_idx.to(torch.int32),
+            coin.to(torch.float32).reshape(1), b=b, a=a, pa=pa,
+            p_page=p_page, scale=scale, block_size=block_size)
+    return ref.dasha_page_payload_blocks_ref(
+        gn, go, bn, bo, h, gi, block_idx, coin, b=b, a=a, pa=pa,
+        p_page=p_page, scale=scale, block_size=block_size)

@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the port's CUDA kernels: the three DASHA-PP
-updates and the async server's buffered commit.
+updates, the sparse wire's tracker and payload passes and the async
+server's buffered commit.
 
 Each follows its Pallas body's arithmetic operation for operation
 (``repro/kernels/dasha_update.py:159-163``, ``:209-215``, ``:260-262``,
-``:389-394``): the hyperparameters enter as ``inv_pa = 1 / pa``,
+``:305-306``, ``:346-349``, ``:389-394``, ``:445-451``, ``:502-507``):
+the hyperparameters enter as ``inv_pa = 1 / pa``,
 ``a * inv_pa``, ``b / p_page`` and ``inv_n = 1 / n`` formed in Python
 double, and the PAGE coin blends the two branches arithmetically.  The
 buffered commit sums its ``K`` rows one after another in order, as the
@@ -35,12 +37,24 @@ def _tail(k: Tensor, h: Tensor, gi: Tensor, mask: Tensor, *, a: float,
     return h_new, payload
 
 
+def _k_same_sample(gn: Tensor, go: Tensor, h: Tensor, b: float) -> Tensor:
+    return gn - go - b * (h - go)
+
+
+def _k_page(gn: Tensor, go: Tensor, bn: Tensor, bo: Tensor, h: Tensor,
+            coin: Tensor, b: float, p_page: float) -> Tensor:
+    c = coin.to(gn.dtype)
+    k_full = gn - go - (b / p_page) * (h - go)
+    k_mini = bn - bo
+    return c * k_full + (1.0 - c) * k_mini
+
+
 def dasha_update_batched_ref(gn: Tensor, go: Tensor, h: Tensor, gi: Tensor,
                              mask: Tensor, *, b: float, a: float, pa: float
                              ) -> Tuple[Tensor, Tensor, Tensor]:
     """Algs. 2/5 + lines 10-11: ``k = gn - go - b (h - go)``, then
     ``h_new = h + mask k/pa`` and ``payload = k/pa - (a/pa)(gi - h)``."""
-    k = gn - go - b * (h - go)
+    k = _k_same_sample(gn, go, h, b)
     return (k,) + _tail(k, h, gi, mask, a=a, pa=pa)
 
 
@@ -52,10 +66,7 @@ def dasha_page_update_batched_ref(gn: Tensor, go: Tensor, bn: Tensor,
     """Alg. 3: ``k = coin k_full + (1 - coin) k_mini`` with the full
     branch ``gn - go - (b/p_page)(h - go)`` and the minibatch branch
     ``bn - bo``; ``coin`` is a 0-d tensor.  Then the same tail."""
-    c = coin.to(gn.dtype)
-    k_full = gn - go - (b / p_page) * (h - go)
-    k_mini = bn - bo
-    k = c * k_full + (1.0 - c) * k_mini
+    k = _k_page(gn, go, bn, bo, h, coin, b, p_page)
     return (k,) + _tail(k, h, gi, mask, a=a, pa=pa)
 
 
@@ -73,3 +84,74 @@ def buffered_commit_ref(g: Tensor, m_buf: Tensor, weights: Tensor, *,
     for k in range(m_buf.shape[0]):
         acc = acc + weights[k] * m_buf[k]
     return g + (1.0 / n_nodes) * acc
+
+
+def dasha_h_update_ref(gn: Tensor, go: Tensor, h: Tensor, mask: Tensor, *,
+                       b: float, pa: float) -> Tensor:
+    """Line 10 alone, (n, d): ``h + mask (k (1/pa))`` with the Algs. 2/5
+    ``k``."""
+    part = mask.to(gn.dtype)[:, None]
+    return h + part * (_k_same_sample(gn, go, h, b) * (1.0 / pa))
+
+
+def dasha_page_h_update_ref(gn: Tensor, go: Tensor, bn: Tensor, bo: Tensor,
+                            h: Tensor, mask: Tensor, coin: Tensor, *,
+                            b: float, pa: float, p_page: float) -> Tensor:
+    """Line 10 alone with the Alg. 3 ``k``; ``coin`` a 0-d tensor."""
+    part = mask.to(gn.dtype)[:, None]
+    k = _k_page(gn, go, bn, bo, h, coin, b, p_page)
+    return h + part * (k * (1.0 / pa))
+
+
+def block_positions(block_idx: Tensor, d: int, block_size: int
+                    ) -> Tuple[Tensor, Tensor]:
+    """The (..., kb, block_size) element positions of the selected
+    blocks of a ``d``-row, clamped into the row, and the mask of those
+    inside it (a block past ``d`` is the reference's zero padding)."""
+    lane = torch.arange(block_size, device=block_idx.device)
+    pos = block_idx.to(torch.int64)[..., None] * block_size + lane
+    return pos.clamp(max=d - 1), pos < d
+
+
+def _payload_blocks(k_fn, rows, gi: Tensor, h: Tensor, block_idx: Tensor,
+                    *, a: float, pa: float, scale: float,
+                    block_size: int) -> Tensor:
+    n, d = h.shape
+    pos, inside = block_positions(block_idx, d, block_size)
+    flat = pos.reshape(n, -1)
+
+    def at(x):
+        return torch.gather(x, 1, flat).reshape(pos.shape)
+
+    hb = at(h)
+    k = k_fn(*(at(x) for x in rows), hb)
+    inv_pa = 1.0 / pa
+    payload = k * inv_pa - (a * inv_pa) * (at(gi) - hb)
+    return torch.where(inside, payload * scale, torch.zeros_like(payload))
+
+
+def dasha_payload_blocks_ref(gn: Tensor, go: Tensor, h: Tensor, gi: Tensor,
+                             block_idx: Tensor, *, b: float, a: float,
+                             pa: float, scale: float, block_size: int
+                             ) -> Tensor:
+    """The Algs. 2/5 line-11 payload at the selected blocks, times
+    ``scale``: (n, kb, block_size) from (n, d) rows and (n, kb) block
+    numbers, zero past ``d``."""
+    return _payload_blocks(lambda gn_, go_, h_: _k_same_sample(gn_, go_, h_,
+                                                               b),
+                           (gn, go), gi, h, block_idx, a=a, pa=pa,
+                           scale=scale, block_size=block_size)
+
+
+def dasha_page_payload_blocks_ref(gn: Tensor, go: Tensor, bn: Tensor,
+                                  bo: Tensor, h: Tensor, gi: Tensor,
+                                  block_idx: Tensor, coin: Tensor, *,
+                                  b: float, a: float, pa: float,
+                                  p_page: float, scale: float,
+                                  block_size: int) -> Tensor:
+    """The Alg. 3 payload at the selected blocks, times ``scale``."""
+    return _payload_blocks(
+        lambda gn_, go_, bn_, bo_, h_: _k_page(gn_, go_, bn_, bo_, h_, coin,
+                                               b, p_page),
+        (gn, go, bn, bo), gi, h, block_idx, a=a, pa=pa, scale=scale,
+        block_size=block_size)

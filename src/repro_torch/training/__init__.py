@@ -1,3 +1,5 @@
-"""repro_torch.training — so far only the metrics logger the launch
-CLIs share (a copy of ``repro/training/metrics.py``); the trainer, loop,
-optimisers and checkpoints come with the sharded LM trainer."""
+"""repro_torch.training — the sharded LM trainer of the port:
+``trainer`` (Trainer, TrainState, the train step), ``loop`` (train),
+``optim`` (the server optimizers) and ``metrics`` (the metrics logger the
+launch CLIs share, a copy of ``repro/training/metrics.py``).
+Checkpoints come with a later slice (ROADMAP)."""

@@ -357,7 +357,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
-    for sub in ("core", "kernels", "fl", "obs", "launch", "training"):
+    for sub in ("core", "kernels", "fl", "obs", "launch", "training",
+                "models", "configs", "data"):
         assert any(f.parent.name == sub for f in files), sub
     for path in files:
         for mod in _imported_modules(path):
@@ -366,7 +367,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, repro_torch, repro_torch.convert, "
             "repro_torch.kernels.build, repro_torch.kernels.dasha_update, "
             "repro_torch.fl, repro_torch.obs, repro_torch.training.metrics, "
-            "repro_torch.launch.async_train; "
+            "repro_torch.launch.async_train, repro_torch.models, "
+            "repro_torch.data, repro_torch.core.sharded, "
+            "repro_torch.training.trainer, repro_torch.training.loop, "
+            "repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")

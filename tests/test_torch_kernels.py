@@ -325,3 +325,194 @@ def test_buffered_commit_source_on_the_host_matches_plain_version(
         g.data_ptr(), m_buf.data_ptr(), w.data_ptr(), out.data_ptr(), kk, d,
         1.0 / 7, None) == 0
     assert torch.equal(out, ref.buffered_commit_ref(g, m_buf, w, n_nodes=7))
+
+
+# ----------------------------------------------------------------------
+# The sparse wire's split (the sharded engine's BlockRandK path): the
+# tracker pass and the payload at the selected blocks.  The Pallas
+# kernels are flat, one node's (D,) leaf per call; the port's take the
+# node-major (n, D) rows, so each node's row is held to its own call.
+# Tolerance: rtol = 1e-6 and atol = 1e-6 x the payload's scale, as for
+# the dense updates above.  Both sides take the Pallas body's operations
+# in float32 from the same coefficients, but XLA on the CPU may contract
+# a multiply and an add of the interpret-mode body into one rounding: an
+# ulp of the terms, which the payload's difference can cancel down to.
+# ----------------------------------------------------------------------
+
+
+def _ulp(got, want, scale=1.0):
+    np.testing.assert_allclose(to_numpy(got), np.array(want), rtol=RTOL,
+                               atol=ATOL * scale)
+
+SPARSE_HP = dict(b=0.3, a=0.07, pa=0.37)
+P_PAGE = 0.21
+
+
+def _sparse_inputs(seed, n, d, kb, nb):
+    xs = numpy_inputs(seed, 6, (n, d))
+    rng = np.random.default_rng(seed)
+    idx = np.stack([rng.permutation(nb)[:kb] for _ in range(n)])
+    return xs, idx.astype(np.int32)
+
+
+def _plan(d, block_size):
+    bs = min(block_size, d)
+    return bs, -(-d // bs)
+
+
+@pytest.mark.parametrize("d", [1, 7, 129, 2051])
+@pytest.mark.parametrize("part", [0.0, 1.0])
+def test_h_update_plain_versions_match_pallas(d, part):
+    xs, _ = _sparse_inputs(d, 2, d, 1, 1)
+    gn, go, bn, bo, h, _ = xs
+    mask = np.full(2, part, np.float32)
+    got = ref.dasha_h_update_ref(*map(torch.from_numpy, (gn, go, h)),
+                                 torch.from_numpy(mask), b=0.3, pa=0.37)
+    for coin in (0.0, 1.0):
+        got_page = ref.dasha_page_h_update_ref(
+            *map(torch.from_numpy, (gn, go, bn, bo, h)),
+            torch.from_numpy(mask), torch.tensor(coin), b=0.3, pa=0.37,
+            p_page=P_PAGE)
+        for i in range(2):
+            want = pallas.dasha_h_update_pallas(
+                gn[i], go[i], h[i], np.float32(part), b=0.3, pa=0.37,
+                interpret=True)
+            _ulp(got[i], want)
+            want = pallas.dasha_page_h_update_pallas(
+                gn[i], go[i], bn[i], bo[i], h[i], np.float32(part),
+                np.float32(coin), b=0.3, pa=0.37, p_page=P_PAGE,
+                interpret=True)
+            _ulp(got_page[i], want)
+
+
+@pytest.mark.parametrize("d", [1, 7, 129, 2051])
+@pytest.mark.parametrize("block_size", [128, 50])
+@pytest.mark.parametrize("kb", [1, 5])
+def test_payload_blocks_plain_versions_match_pallas(d, block_size, kb):
+    """``bs = min(block_size, d)``; block size 50 does not divide 129 or
+    2051, so the last block runs past the row (zero there)."""
+    bs, nb = _plan(d, block_size)
+    kb = min(kb, nb)
+    xs, idx = _sparse_inputs(d + kb, 2, d, kb, nb)
+    gn, go, bn, bo, h, gi = xs
+    scale = nb / kb
+    kw = dict(SPARSE_HP, scale=scale, block_size=bs)
+    got = ref.dasha_payload_blocks_ref(
+        *map(torch.from_numpy, (gn, go, h, gi)), torch.from_numpy(idx), **kw)
+    for coin in (0.0, 1.0):
+        got_page = ref.dasha_page_payload_blocks_ref(
+            *map(torch.from_numpy, xs), torch.from_numpy(idx),
+            torch.tensor(coin), **kw, p_page=P_PAGE)
+        for i in range(2):
+            want = pallas.dasha_payload_blocks_pallas(
+                gn[i], go[i], h[i], gi[i], idx[i], **kw, interpret=True)
+            _ulp(got[i], want, scale)
+            want = pallas.dasha_page_payload_blocks_pallas(
+                *(x[i] for x in xs), idx[i], np.float32(coin), **kw,
+                p_page=P_PAGE, interpret=True)
+            _ulp(got_page[i], want, scale)
+
+
+def test_sparse_ops_route_cpu_tensors_to_the_plain_versions():
+    xs, idx = _sparse_inputs(5, 3, 300, 2, 3)
+    gn, go, bn, bo, h, gi = map(torch.from_numpy, xs)
+    idx = torch.from_numpy(idx)
+    mask = torch.tensor([True, False, True])
+    coin = torch.tensor(True)
+    kw = dict(SPARSE_HP, scale=1.5, block_size=128)
+    kernels.reset_launches()
+    assert torch.equal(ops.dasha_h_update_op(gn, go, h, mask, b=0.3, pa=0.37),
+                       ref.dasha_h_update_ref(gn, go, h, mask, b=0.3,
+                                              pa=0.37))
+    assert torch.equal(
+        ops.dasha_page_h_update_op(gn, go, bn, bo, h, mask, coin, b=0.3,
+                                   pa=0.37, p_page=P_PAGE),
+        ref.dasha_page_h_update_ref(gn, go, bn, bo, h, mask, coin, b=0.3,
+                                    pa=0.37, p_page=P_PAGE))
+    assert torch.equal(
+        ops.dasha_payload_blocks_op(gn, go, h, gi, idx, **kw),
+        ref.dasha_payload_blocks_ref(gn, go, h, gi, idx, **kw))
+    assert torch.equal(
+        ops.dasha_page_payload_blocks_op(gn, go, bn, bo, h, gi, idx, coin,
+                                         **kw, p_page=P_PAGE),
+        ref.dasha_page_payload_blocks_ref(gn, go, bn, bo, h, gi, idx, coin,
+                                          **kw, p_page=P_PAGE))
+    assert sum(kernels.launches.values()) == 0
+
+
+def test_sparse_wrappers_take_cuda_tensors_only():
+    x = torch.zeros(2, 300)
+    mask = torch.ones(2)
+    idx = torch.zeros(2, 3, dtype=torch.int32)
+    kw = dict(SPARSE_HP, scale=1.0, block_size=128)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.dasha_h_update(x, x, x, mask, b=0.3, pa=0.37)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.dasha_page_h_update(x, x, x, x, x, mask, torch.ones(1),
+                                    b=0.3, pa=0.37, p_page=0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.dasha_payload_blocks(x, x, x, x, idx, **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.dasha_page_payload_blocks(x, x, x, x, x, x, idx,
+                                          torch.ones(1), **kw, p_page=0.5)
+    with pytest.raises(TypeError, match="int32"):
+        kernels.dasha_payload_blocks(x, x, x, x, idx.long(), **kw)
+    with pytest.raises(ValueError, match=r"\(n, kb\)"):
+        kernels.dasha_payload_blocks(x, x, x, x, idx[0], **kw)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.dasha_payload_blocks(x, x, x, x, idx[:1], **kw)
+
+
+def test_sparse_kernel_sources_name_the_tpu_kernels_they_replace():
+    src = (build.CSRC / "dasha_update.cu").read_text()
+    for fn in ("dasha_h_update_pallas", "dasha_page_h_update_pallas",
+               "dasha_payload_blocks_pallas",
+               "dasha_page_payload_blocks_pallas", "dasha_update_pallas"):
+        assert fn in src and hasattr(pallas, fn)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n, d, block_size, kb", [
+    (1, 1, 128, 1), (3, 7, 128, 1), (2, 129, 128, 2), (3, 129, 50, 3),
+    (2, 2051, 128, 5), (4, 20958, 128, 3)])
+def test_sparse_cuda_source_on_the_host_matches_plain_versions(
+        host_build, n, d, block_size, kb, offset):
+    """The h passes' float4 chunks and tails, and the payload gathers'
+    block arithmetic and zero tail, bit for bit."""
+    b, a, pa = 0.3, 0.07, 0.37
+    inv_pa = 1.0 / pa
+    bs, nb = _plan(d, block_size)
+    gn, go, bn, bo, h, gi = _operands(n, d, 6, offset, n * d + kb)
+    mask = torch.tensor([float(i % 2 == 0) for i in range(n)])
+    gen = torch.Generator().manual_seed(d)
+    idx = torch.stack([torch.randperm(nb, generator=gen)[:kb]
+                       for _ in range(n)]).to(torch.int32)
+    scale = nb / kb
+    h_new, = _operands(n, d, 1, offset, 0)
+    out = torch.full((n, kb, bs), float("nan"))
+    assert host_build.dasha_h_update(
+        gn.data_ptr(), go.data_ptr(), h.data_ptr(), mask.data_ptr(),
+        h_new.data_ptr(), n, d, b, inv_pa, None) == 0
+    assert torch.equal(h_new, ref.dasha_h_update_ref(gn, go, h, mask, b=b,
+                                                     pa=pa))
+    assert host_build.dasha_payload_blocks(
+        gn.data_ptr(), go.data_ptr(), h.data_ptr(), gi.data_ptr(),
+        idx.data_ptr(), out.data_ptr(), n, d, kb, bs, b, inv_pa,
+        a * inv_pa, scale, None) == 0
+    assert torch.equal(out, ref.dasha_payload_blocks_ref(
+        gn, go, h, gi, idx, b=b, a=a, pa=pa, scale=scale, block_size=bs))
+    for coin in (torch.zeros(1), torch.ones(1)):
+        assert host_build.dasha_page_h_update(
+            gn.data_ptr(), go.data_ptr(), bn.data_ptr(), bo.data_ptr(),
+            h.data_ptr(), mask.data_ptr(), coin.data_ptr(), h_new.data_ptr(),
+            n, d, b / P_PAGE, inv_pa, None) == 0
+        assert torch.equal(h_new, ref.dasha_page_h_update_ref(
+            gn, go, bn, bo, h, mask, coin[0], b=b, pa=pa, p_page=P_PAGE))
+        assert host_build.dasha_page_payload_blocks(
+            gn.data_ptr(), go.data_ptr(), bn.data_ptr(), bo.data_ptr(),
+            h.data_ptr(), gi.data_ptr(), idx.data_ptr(), coin.data_ptr(),
+            out.data_ptr(), n, d, kb, bs, b / P_PAGE, inv_pa, a * inv_pa,
+            scale, None) == 0
+        assert torch.equal(out, ref.dasha_page_payload_blocks_ref(
+            gn, go, bn, bo, h, gi, idx, coin[0], b=b, a=a, pa=pa,
+            p_page=P_PAGE, scale=scale, block_size=bs))
