@@ -38,34 +38,45 @@ line:
 8. fleet    -- a depth-1 edge-aggregator fleet at full width (gradient,
                10 rounds): the wire-bits ledger reconciles, ms per round;
 9. kernel   -- the sparse wire's four kernels (and the batched update in
-               its per-leaf form) at granite-3-2b's ``w_gate`` and
-               ``embed`` leaves, 8 layers, 4 nodes, ratio 1/64, blocks of
-               128: equal to their plain versions, times beside bounds;
-10. train   -- ``build_trainer`` of the train CLI at full width, 8 of 40
-               layers (memory), bf16, 4 nodes x 2 sequences of 4,096,
-               p_a 0.5: gradient, mvr and page on the sparse wire and mvr
-               on ``dense_psum``, 3 steps each through ``loop.train``: one
+               its per-leaf form) and BlockRandK's block gather and block
+               scatter (``csrc/randk.cu``) at granite-3-2b's ``w_gate``
+               and ``embed`` leaves, 8 layers, 4 nodes, ratio 1/64,
+               blocks of 128: equal to their plain versions, times
+               beside bounds (the scatter also beside ``index_add_``);
+10. train   -- the train CLI's ``build_trainer`` at full width from its
+               flags ``--layers 8 --global-batch 8`` (8 of 40 layers,
+               bf16, 4 nodes x 2 sequences of 4,096), p_a 0.5: gradient,
+               mvr, page and finite-MVR on the sparse wire and mvr on
+               ``dense_psum``, 3 steps each through ``loop.train``: one
                launch per leaf and step of the wire's kernels, ms per
-               step, peak memory, loss, grad norm, participants, bits;
+               step, peak memory against the CLI's estimate, loss, grad
+               norm, participants, bits;
 11. train-breakdown -- ``torch.profiler`` over one node's gradient and
                one engine update: their times, the device's busy share,
                the top kernels;
 12. train-trajectory -- the smoke trainer (float32) on the card and on the
                CPU from the same weights, batches and draws, 5 steps per
                variant, held allclose;
-13. train-cli -- ``python -m repro_torch.launch.train --smoke`` on the card;
-14. the card's ``nvidia-smi`` line, the ``kernels`` line, and the ``ok``
+13. train-resume -- the smoke trainer on the card, 4 steps straight
+               against 2 steps, a checkpoint, a restore and 2 more
+               (gradient and finite-MVR), held allclose, the checkpoint
+               numbering extended;
+14. train-cli -- ``python -m repro_torch.launch.train --smoke`` on the card;
+15. the card's ``nvidia-smi`` line, the ``kernels`` line, and the ``ok``
    line, last.
 
 Any failed check raises, so the script exits non-zero and prints no
 ``ok`` line; it does so at once without a CUDA device.
 """
+import gc
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -81,9 +92,11 @@ from repro_torch import fl  # noqa: E402
 from repro_torch import models as rt_models  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import dasha_update as kernels  # noqa: E402
+from repro_torch.kernels import randk  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.launch import async_train  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.training import checkpoints  # noqa: E402
 from repro_torch.training import loop as train_loop  # noqa: E402
 from repro_torch.training.metrics import MetricsLogger  # noqa: E402
 from repro_torch.training.trainer import per_node_value_and_grads  # noqa: E402,E501
@@ -105,6 +118,7 @@ TRAJ_TOL = dict(rtol=1e-4, atol=1e-5)
 TIMING_REPS = 30
 SLEEP_CYCLES = 2_000_000   # ~1 ms of device spin ahead of each timed launch
 SOURCE = "src/repro_torch/kernels/csrc/dasha_update.cu"
+RANDK_SOURCE = "src/repro_torch/kernels/csrc/randk.cu"
 ASYNC_ROUNDS = 20
 ASYNC_BUFFER = 10                  # arrivals per server step (the main K)
 COMMIT_KS = (ASYNC_BUFFER, N)      # the buffer, and the reference's
@@ -132,7 +146,10 @@ TRAIN_SEQ, TRAIN_PER_NODE = 4096, 2
 TRAIN_STEPS = 3
 TRAIN_RATIO, TRAIN_BLOCK = 1 / 64, 128
 TRAIN_PHASES = (("gradient", "sparse_allgather"), ("mvr", "sparse_allgather"),
-                ("page", "sparse_allgather"), ("mvr", "dense_psum"))
+                ("page", "sparse_allgather"), ("mvr", "dense_psum"),
+                ("finite_mvr", "sparse_allgather"))
+# the CLI's memory estimate must hold the measured peak, within 1.5x
+ESTIMATE_SLACK = 1.5
 TRAIN_TRAJ_STEPS = 5
 # card vs CPU, float32 smoke trainer: cuBLAS and the CPU sum the model's
 # products in other orders, index_add_ adds repeated blocks in another
@@ -152,14 +169,31 @@ SPARSE_KERNELS = {
     "dasha_page_payload_blocks": ("src/repro/kernels/dasha_update.py:513",
                                   6, 14, 1),
 }
+# BlockRandK's kernels: name -> TPU kernel it replaces
+RANDK_KERNELS = {"block_gather": "src/repro/kernels/randk.py:39",
+                 "block_scatter": "src/repro/kernels/randk.py:66"}
+# (variant, sparse wire?) -> the kernels a compressed train step launches
+# once per leaf; every compressed wire scatters each node's blocks into
+# its row (block_scatter_rows)
 WIRE_KERNELS = {("page", True): ("dasha_page_h_update",
-                                 "dasha_page_payload_blocks"),
-                ("page", False): ("dasha_page_update_batched",),
+                                 "dasha_page_payload_blocks",
+                                 "block_scatter"),
+                ("page", False): ("dasha_page_update_batched",
+                                  "block_scatter"),
                 ("gradient", True): ("dasha_h_update",
-                                     "dasha_payload_blocks"),
-                ("gradient", False): ("dasha_update_batched",),
-                ("mvr", True): ("dasha_h_update", "dasha_payload_blocks"),
-                ("mvr", False): ("dasha_update_batched",)}
+                                     "dasha_payload_blocks",
+                                     "block_scatter"),
+                ("gradient", False): ("dasha_update_batched",
+                                      "block_scatter"),
+                ("mvr", True): ("dasha_h_update", "dasha_payload_blocks",
+                                "block_scatter"),
+                ("mvr", False): ("dasha_update_batched", "block_scatter"),
+                ("finite_mvr", True): ("dasha_tail_batched", "block_gather",
+                                       "block_scatter"),
+                ("finite_mvr", False): ("dasha_tail_batched",
+                                        "block_scatter")}
+# the per-leaf form of the batched update: the flat TPU kernel (#1)
+FLAT_UPDATE = "dasha_update"
 KERNEL_OF = {"gradient": "dasha_update_batched",
              "mvr": "dasha_update_batched",
              "page": "dasha_page_update_batched",
@@ -232,13 +266,20 @@ def phase_device():
 
 
 def phase_build():
-    built = build.build(kernels.LIBRARY)
+    """Both CUDA sources built at once, one ``nvcc`` each."""
+    libs = {SOURCE: kernels.LIBRARY, RANDK_SOURCE: randk.LIBRARY}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        built = dict(zip(libs, pool.map(build.build, libs.values())))
+    seconds = time.perf_counter() - t0
     kernels.library()
-    ptxas = [ln.strip() for ln in built.log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", source=SOURCE, library=built.path.name,
-         seconds=built.seconds, flags=" ".join(build.NVCC_FLAGS),
-         ptxas=ptxas)
+    randk.library()
+    for source, b in built.items():
+        ptxas = [ln.strip() for ln in b.log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        emit("build", source=source, library=b.path.name,
+             seconds=b.seconds, flags=" ".join(build.NVCC_FLAGS),
+             ptxas=ptxas, wall_seconds_both=seconds)
 
 
 def phase_kernels(dev, name, flush):
@@ -631,16 +672,20 @@ def phase_fleet(dev, prob, comp, samp):
 
 
 def train_args(variant, aggregation, *extra):
-    """The train CLI's flags of one full-width phase."""
+    """The train CLI's flags of one phase: full width, cut to
+    TRAIN_LAYERS layers and TRAIN_PER_NODE sequences a node, unless
+    ``extra`` says ``--smoke``."""
+    cut = [] if "--smoke" in extra else [
+        "--layers", str(TRAIN_LAYERS),
+        "--global-batch", str(TRAIN_NODES * TRAIN_PER_NODE)]
     return train_cli.build_parser().parse_args(
         ["--variant", variant, "--aggregation", aggregation, "--ratio",
          repr(TRAIN_RATIO), "--nodes", str(TRAIN_NODES), "--p-page", "0.5",
-         *extra])
+         *cut, *extra])
 
 
 def full_width_arch():
-    return rt_models.get_config("granite-3-2b").with_overrides(
-        num_layers=TRAIN_LAYERS)
+    return train_cli.run_shape(train_args("mvr", "sparse_allgather"))[0]
 
 
 def phase_sparse_kernels(dev, name, flush):
@@ -748,19 +793,109 @@ def phase_sparse_kernels(dev, name, flush):
             check(err == 0.0, f"dasha_update_batched per leaf: {err}")
             del outs
             nbytes = (7 * n * d + n) * 4
-            emit("kernel", name="dasha_update_batched", route="cuda",
-                 source=SOURCE,
-                 replaces="src/repro/kernels/dasha_update.py:101",
-                 max_abs_err=err, ms=time_ms(fn, flush),
-                 plain_ms=time_ms(lambda: ref.dasha_update_batched_ref(
-                     gn, go, h, gi, mask, **hp), flush),
-                 bound_ms=nbytes / mem_rate * 1e3, bound_by="bytes",
-                 library_ms=None, bytes=nbytes, leaf=leaf, shape=[n, d],
-                 form="per leaf, one row per node (the flat kernel)",
-                 tolerance="exact")
+            rows[FLAT_UPDATE] = dict(
+                name=FLAT_UPDATE, route="cuda", source=SOURCE,
+                replaces="src/repro/kernels/dasha_update.py:101",
+                max_abs_err=err, ms=time_ms(fn, flush),
+                plain_ms=time_ms(lambda: ref.dasha_update_batched_ref(
+                    gn, go, h, gi, mask, **hp), flush),
+                bound_ms=nbytes / mem_rate * 1e3, bound_by="bytes",
+                library_ms=None, bytes=nbytes)
+            emit("kernel", **rows[FLAT_UPDATE], leaf=leaf, shape=[n, d],
+                 form="dasha_update_batched per leaf, one row per node "
+                      "(the flat kernel)", tolerance="exact")
         del gn, go, bn, bo, h, gi, idx
         torch.cuda.empty_cache()
     return rows
+
+
+def phase_randk_kernels(dev, name, flush):
+    """BlockRandK's block gather and block scatter at the ``w_gate`` and
+    ``embed`` leaves, 4 nodes, ratio 1/64, blocks of 128, on one
+    round's draws, against their plain versions: the gather of a
+    payload's selected blocks (finite-MVR's sparse wire), and the
+    scatter of those blocks into each node's zero row at ``block_idx +
+    nb * node`` (every compressed wire), whose rows this checks are
+    distinct.  The scatter is timed beside ``index_add_``, the one
+    PyTorch call that computes it; the gather has none (the gather and
+    the scale are two calls).  Returns the ``w_gate`` rows."""
+    mem_rate, f32_rate = card_rates(name)
+    shapes = rt_models.param_shapes(full_width_arch())
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    out_rows = {}
+    for leaf in SPARSE_LEAVES:
+        n, d = TRAIN_NODES, int(np.prod(shapes[leaf]))
+        bs, nb, kb = rt.core.variants.block_plan(d, TRAIN_BLOCK, TRAIN_RATIO)
+        scale, sel = nb / kb, n * kb * bs
+        payload = torch.randn(n, d, generator=gen, device=dev)
+        idx = torch.stack([torch.randperm(nb, generator=gen, device=dev)[:kb]
+                           for _ in range(n)])
+        rows = (idx + nb * torch.arange(n, device=dev)[:, None]).reshape(-1)
+        check(rows.unique().numel() == rows.numel(),
+              f"block_scatter at {leaf}: the rows of the draw are distinct")
+        # the selected elements inside the row (this run's indices)
+        inside = int(((idx[..., None] * bs
+                       + torch.arange(bs, device=dev)) < d).sum())
+        base = torch.zeros(n * nb, bs, device=dev)
+
+        def gather():
+            return randk.block_gather(payload, idx, scale=scale,
+                                      block_size=bs)
+
+        def plain_gather():
+            return ref.block_gather_ref(payload, idx, scale=scale,
+                                        block_size=bs)
+
+        before = dict(kernels.launches)
+        vals = gather().reshape(-1, bs)
+        # in place: onto zero rows, each side its own
+        scattered = randk.block_scatter(torch.zeros_like(base), vals, rows)
+        torch.cuda.synchronize()
+        errs = {"block_gather": (vals.view(n, kb, bs)
+                                 - plain_gather()).abs().max().item(),
+                "block_scatter": (scattered - ref.block_scatter_ref(
+                    torch.zeros_like(base), vals, rows)).abs().max().item()}
+        del scattered
+        cases = {
+            # kernel, plain version, library call, bytes, float ops
+            "block_gather": (gather, plain_gather, None,
+                             inside * 4 + sel * 4 + n * kb * 8, inside),
+            # base rows read and written, the values read, the rows
+            "block_scatter": (
+                lambda: randk.block_scatter(base, vals, rows),
+                lambda: ref.block_scatter_ref(base, vals, rows),
+                lambda: base.index_add_(0, rows, vals),
+                3 * sel * 4 + n * kb * 8, sel),
+        }
+        for kname, (kernel_fn, plain_fn, library_fn, nbytes,
+                    flops) in cases.items():
+            check(kernels.launches[kname] == before[kname] + 1,
+                  f"{kname} counted its launch")
+            # exact: one multiply (gather) or one add (scatter) a side
+            check(errs[kname] == 0.0, f"{kname} at {leaf}: max |kernel - "
+                                      f"plain| = {errs[kname]}")
+            bytes_ms = nbytes / mem_rate * 1e3
+            ops_ms = flops / f32_rate * 1e3
+            fields = dict(
+                name=kname, route="cuda", source=RANDK_SOURCE,
+                replaces=RANDK_KERNELS[kname], max_abs_err=errs[kname],
+                ms=time_ms(kernel_fn, flush),
+                plain_ms=time_ms(plain_fn, flush),
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=(None if library_fn is None
+                            else time_ms(library_fn, flush)),
+                bytes=nbytes)
+            emit("kernel", **fields, leaf=leaf, shape=[n, d],
+                 blocks=[nb, bs], kb=kb, tolerance="exact",
+                 library=("torch.Tensor.index_add_" if library_fn
+                          else "none: the gather and the scale are two "
+                               "PyTorch calls"))
+            if leaf == SPARSE_LEAVES[0]:
+                out_rows[kname] = fields
+        del payload, base, vals, idx, rows
+        torch.cuda.empty_cache()
+    return out_rows
 
 
 class Recorder(MetricsLogger):
@@ -780,12 +915,18 @@ def phase_train(dev, variant, aggregation):
     """One full-width phase through the CLI's ``build_trainer`` and the
     loop's ``train``; returns (launches, trainer, state, batch)."""
     args = train_args(variant, aggregation, "--device", str(dev))
+    estimate = train_cli.estimate_for(args)
+    # earlier phases' cyclic garbage (the real-sim problem's features
+    # among it) is freed now, not inside this phase's peak
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    trainer, state, data, arch = train_cli.build_trainer(
-        args, full_width_arch(), seq_len=TRAIN_SEQ,
-        global_batch=TRAIN_NODES * TRAIN_PER_NODE)
+    trainer, state, data, arch = train_cli.build_trainer(args)
+    check(arch.num_layers == TRAIN_LAYERS and data.seq_len == TRAIN_SEQ
+          and data.global_batch == TRAIN_NODES * TRAIN_PER_NODE,
+          f"train {variant}: the flags give the cut")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     stream = train_cli.batches(args, arch, data)
@@ -810,6 +951,11 @@ def phase_train(dev, variant, aggregation):
     check(all(all_finite(v) for v in state.params.values()),
           f"train {variant}: finite params")
     walls = [r["wall_s"] for r in rows]
+    peak = torch.cuda.max_memory_allocated() - resident
+    check(peak <= estimate <= ESTIMATE_SLACK * peak,
+          f"train {variant} {aggregation}: the CLI's estimate "
+          f"{estimate / 1e9:.2f} GB holds the peak {peak / 1e9:.2f} GB "
+          f"within {ESTIMATE_SLACK}x")
     bits_node = trainer.engine.message_bits_per_node()
     check(all(r["bits_sent"] == r["participants"] * bits_node for r in rows),
           f"train {variant}: bits = participants x bits per node")
@@ -822,7 +968,11 @@ def phase_train(dev, variant, aggregation):
          launches=counts, setup_s=setup_s, seconds=seconds,
          ms_first_step=walls[0] * 1e3,
          ms_per_step=(walls[-1] - walls[0]) / (len(walls) - 1) * 1e3,
-         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+         peak_gb=peak / 1e9, resident_gb=resident / 1e9,
+         estimate_gb=estimate / 1e9,
+         estimate_over_peak=estimate / peak,
+         component_batch=args.component_batch if variant == "finite_mvr"
+         else None,
          loss=[r["loss"] for r in rows],
          grad_norm=[r["grad_norm"] for r in rows],
          participants=[r["participants"] for r in rows],
@@ -918,23 +1068,8 @@ def phase_train_trajectory(dev):
             check(float(m_c.bits_sent) == float(m_g.bits_sent)
                   and float(m_c.participants) == float(m_g.participants),
                   f"train-trajectory {variant}: equal bits and participants")
-        errs, worst = {}, {}
-        for part in ("params", "g", "g_i", "h_i"):
-            a_tree = st_g.params if part == "params" else getattr(
-                st_g.dasha, part)
-            b_tree = st_c.params if part == "params" else getattr(
-                st_c.dasha, part)
-            for k, b in b_tree.items():
-                a = a_tree[k].cpu()
-                err = (a - b).abs().max().item()
-                scale = b.abs().max().item()
-                ok = torch.allclose(a, b, rtol=TRAIN_TRAJ_TOL["rtol"],
-                                    atol=TRAIN_TRAJ_TOL["atol_scale"]
-                                    * scale)
-                check(ok, f"train-trajectory {variant}: {part}/{k} card vs "
-                          f"CPU: max abs err {err} (leaf max {scale})")
-                if err >= errs.get(part, -1.0):
-                    errs[part], worst[part] = err, f"{part}/{k}"
+        errs, worst = state_errors(st_g, st_c,
+                                   f"train-trajectory {variant}")
         emit("train-trajectory", variant=variant, wire=aggregation,
              steps=TRAIN_TRAJ_STEPS, layers=arch.num_layers,
              d_model=arch.d_model, nodes=TRAIN_NODES,
@@ -942,6 +1077,76 @@ def phase_train_trajectory(dev):
                  SEED, t, "cpu")).coin) for t in range(TRAIN_TRAJ_STEPS)]
              if variant == "page" else None,
              max_abs_err_by_part=errs, worst_leaf=worst,
+             tolerance=TRAIN_TRAJ_TOL)
+
+
+def state_errors(st_a, st_b, what):
+    """Per state part, the largest |a - b| over its leaves and the leaf
+    that has it; checks every leaf within TRAIN_TRAJ_TOL (atol scaled by
+    the leaf's largest magnitude), on the CPU."""
+    errs, worst = {}, {}
+    for part in ("params", "g", "g_i", "h_i", "h_ij"):
+        a_tree = st_a.params if part == "params" else getattr(st_a.dasha,
+                                                              part)
+        b_tree = st_b.params if part == "params" else getattr(st_b.dasha,
+                                                              part)
+        if b_tree is None:
+            continue
+        for k, b in b_tree.items():
+            a, b = a_tree[k].cpu(), b.cpu()
+            err = (a - b).abs().max().item()
+            scale = b.abs().max().item()
+            ok = torch.allclose(a, b, rtol=TRAIN_TRAJ_TOL["rtol"],
+                                atol=TRAIN_TRAJ_TOL["atol_scale"] * scale)
+            check(ok, f"{what}: {part}/{k}: max abs err {err} (leaf max "
+                      f"{scale})")
+            if err >= errs.get(part, -1.0):
+                errs[part], worst[part] = err, f"{part}/{k}"
+    return errs, worst
+
+
+def phase_train_resume(dev):
+    """A run resumed from a checkpoint continues the straight run: the
+    smoke trainer on the card, 4 steps in one go against 2 steps saved
+    every 2, a restore onto a fresh state and 2 more, through
+    ``loop.train`` (gradient: its cache restored; finite-MVR: its
+    ``h_ij``).  Not bitwise on the card: the server's ``index_add_``
+    sums blocks that several nodes chose in an order that varies."""
+    for variant in ("gradient", "finite_mvr"):
+        args = train_args(variant, "sparse_allgather", "--smoke",
+                          "--device", str(dev))
+
+        def run(state, trainer, stream, steps, where=None):
+            return train_loop.train(trainer, state, stream, steps,
+                                    seed=SEED, device=dev, log_every=100,
+                                    checkpoint_dir=where,
+                                    checkpoint_every=2 if where else 0)
+
+        with tempfile.TemporaryDirectory() as where:
+            trainer, state, data, arch = train_cli.build_trainer(args)
+            straight = run(state, trainer,
+                           train_cli.batches(args, arch, data), 4)
+            trainer, state, _, _ = train_cli.build_trainer(args)
+            run(state, trainer, train_cli.batches(args, arch, data), 2,
+                where)
+            trainer, like, _, _ = train_cli.build_trainer(args)
+            kernels.reset_launches()
+            restored = checkpoints.restore_checkpoint(where, like)
+            check(restored.step == 2 and restored.dasha.step == 2,
+                  f"train-resume {variant}: restored at step 2")
+            resumed = run(restored, trainer,
+                          train_cli.batches(args, arch, data), 2, where)
+            torch.cuda.synchronize()
+            files = sorted(f for f in os.listdir(where)
+                           if f.endswith(".npz"))
+        check(files == ["ckpt_00000002.npz", "ckpt_00000004.npz"],
+              f"train-resume {variant}: the numbering extends: {files}")
+        check(kernels.launches["block_scatter"] > 0,
+              f"train-resume {variant}: the resumed steps ran on the card")
+        errs, worst = state_errors(resumed, straight,
+                                   f"train-resume {variant}")
+        emit("train-resume", variant=variant, steps=[2, 2],
+             checkpoints=files, max_abs_err_by_part=errs, worst_leaf=worst,
              tolerance=TRAIN_TRAJ_TOL)
 
 
@@ -986,19 +1191,24 @@ def main():
     torch.cuda.empty_cache()
     flush = torch.zeros(128 << 20 >> 2, device=dev)
     rows.update(phase_sparse_kernels(dev, name, flush))
+    rows.update(phase_randk_kernels(dev, name, flush))
     del flush
-    for kname in SPARSE_KERNELS:
+    for kname in (*SPARSE_KERNELS, *RANDK_KERNELS, FLAT_UPDATE):
         launches[kname] = 0
     for variant, aggregation in TRAIN_PHASES:
         counts, trainer, state, batch = phase_train(dev, variant,
                                                     aggregation)
         for kname, count in counts.items():
-            launches[kname] = launches.get(kname, 0) + count
+            # the batched update launched per leaf is the flat kernel's
+            # port; the trainer's finite-MVR tail counts with its own row
+            key = FLAT_UPDATE if kname == "dasha_update_batched" else kname
+            launches[key] = launches.get(key, 0) + count
         if (variant, aggregation) == ("mvr", "sparse_allgather"):
             phase_train_breakdown(dev, trainer, state, batch)
         del trainer, state, batch
         torch.cuda.empty_cache()
     phase_train_trajectory(dev)
+    phase_train_resume(dev)
     phase_train_cli()
     for kname, count in launches.items():
         check(count > 0, f"the main path launched {kname}")

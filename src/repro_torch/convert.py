@@ -100,8 +100,8 @@ def params_from_jax(tree, device="cuda") -> Dict[str, Tensor]:
 
 def train_state_from_jax(ref_state, device="cuda"):
     """A copy of a reference ``TrainState`` (``repro.training.trainer``):
-    params, the engine's ``g``/``g_i``/``h_i``, the server optimizer's
-    state and the step counters.  The gradient variant's cache carries
+    params, the engine's ``g``/``g_i``/``h_i`` (and finite-MVR's
+    ``h_ij``), the server optimizer's state and the step counters.  The gradient variant's cache carries
     over from the second round on (before it the reference's cache is
     zeros it does not read, the port's ``None``)."""
     from repro_torch.training import optim
@@ -114,7 +114,9 @@ def train_state_from_jax(ref_state, device="cuda"):
     dasha = ShardedDashaState(g=params_from_jax(d.g, device),
                               g_i=params_from_jax(d.g_i, device),
                               h_i=params_from_jax(d.h_i, device),
-                              step=count(d.step))
+                              step=count(d.step),
+                              h_ij=None if d.h_ij is None
+                              else params_from_jax(d.h_ij, device))
     opt = ref_state.opt
     if type(opt).__name__ == "SGDState":
         opt = optim.SGDState(count=count(opt.count))

@@ -12,7 +12,8 @@ A :class:`VariantRule` holds
     ``dasha_page_update`` for PAGE, the tail alone for finite-MVR), and
     for the sharded engine the per-leaf forms (``fused_flat``) and the
     sparse wire's split (``fused_flat_blocks``: the tracker pass and the
-    payload at the selected blocks, gradient, MVR and PAGE).
+    payload at the selected blocks for gradient, MVR and PAGE; the tail
+    and the block gather for finite-MVR).
 
 **The random-draw seam.**  Torch cannot reproduce JAX's threefry bits,
 so a round's randomness is one explicit :class:`RoundDraws`: the
@@ -134,13 +135,17 @@ def block_scatter_add(base: Tensor, vals: Tensor, block_idx: Tensor,
 def block_scatter_rows(vals: Tensor, block_idx: Tensor, d: int,
                        block_size: int) -> Tensor:
     """Each node's blocks dense: (n, kb, block_size) at (n, kb) -> (n, d),
-    zero elsewhere (the per-node ``block_scatter_add`` into zeros)."""
+    zero elsewhere (the per-node ``block_scatter_add`` into zeros).  The
+    block scatter kernel takes the ``n * kb`` rows of the ``(n nb, bs)``
+    zeros at ``block_idx + nb * node``: distinct, since each node draws
+    its blocks without replacement."""
     n = vals.shape[0]
     nb = -(-d // block_size)
     rows = block_idx + nb * torch.arange(n, device=block_idx.device)[:, None]
     out = torch.zeros((n * nb, block_size), dtype=vals.dtype,
                       device=vals.device)
-    out.index_add_(0, rows.reshape(-1), vals.reshape(-1, block_size))
+    ops.block_scatter_op(out, vals.reshape(-1, block_size).contiguous(),
+                         rows.reshape(-1).to(torch.int64))
     return out.view(n, nb * block_size)[:, :d]
 
 
@@ -378,6 +383,21 @@ class FiniteMvrRule(VariantRule):
     def fused_batched(self, ox, h, gi, mask, *, b, a, pa, p_page=1.0):
         h_new, payload = ops.dasha_tail_op(ox.k, h, gi, mask, a=a, pa=pa)
         return ox.k, h_new, payload
+
+    def fused_flat(self, ox, h, gi, part, *, b, a, pa, p_page=1.0):
+        _, h_new, payload = self.fused_batched(ox, h, gi, part, b=b, a=a,
+                                               pa=pa)
+        return h_new, payload
+
+    def fused_flat_blocks(self, ox, h, gi, part, block_idx, *, b, a, pa,
+                          scale, block_size, p_page=1.0):
+        """``k`` comes dense from the component update, so the payload
+        has nothing to save by staying unwritten: the tail, then the
+        selected blocks gathered (``variants.py:478-490``)."""
+        h_new, payload = self.fused_flat(ox, h, gi, part, b=b, a=a, pa=pa)
+        vals = ops.block_gather_op(payload, block_idx, scale=scale,
+                                   block_size=block_size)
+        return h_new, vals
 
 
 # ----------------------------------------------------------------------

@@ -34,8 +34,11 @@ launches: Dict[str, int] = {"dasha_update_batched": 0,
                             "dasha_h_update": 0,
                             "dasha_page_h_update": 0,
                             "dasha_payload_blocks": 0,
-                            "dasha_page_payload_blocks": 0}
-"""Kernel launches since the last :func:`reset_launches`, by kernel."""
+                            "dasha_page_payload_blocks": 0,
+                            "block_gather": 0,
+                            "block_scatter": 0}
+"""Kernel launches since the last :func:`reset_launches`, by kernel: this
+module's and :mod:`.randk`'s."""
 
 
 def reset_launches() -> None:
@@ -72,6 +75,7 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.dasha_error_string.argtypes = [ctypes.c_int]
     lib.dasha_error_string.restype = ctypes.c_char_p
+    lib.error_string = lib.dasha_error_string
     return lib
 
 
@@ -114,14 +118,18 @@ def _check_operands(operands: Dict[str, Tuple[Tensor, Tuple[int, ...]]],
             raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    lib = library()
+def _launch(name: str, device: torch.device, *args,
+            lib: Optional[ctypes.CDLL] = None) -> None:
+    """Launch C function ``name`` of ``lib`` (this module's library by
+    default) on the current stream, raise if the launch failed, and count
+    it."""
+    lib = library() if lib is None else lib
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
-                           f"{lib.dasha_error_string(err).decode()}")
+                           f"{lib.error_string(err).decode()}")
     launches[name] += 1
 
 

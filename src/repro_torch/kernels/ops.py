@@ -1,22 +1,27 @@
 """The op layer the engines call for Algorithm 1 lines 9-11 (dense, and
-split for the sparse wire), and the async server for its commit.
+split for the sparse wire), the async server for its commit, and the
+sharded engine for BlockRandK's block gather and scatter.
 
 The port of ``repro/kernels/ops.py:63-186``; the flat ops there
 (``dasha_update_op``, the sharded engine's per-leaf forms) are the
 batched ones here with one row per node.  Each op looks at where its
 tensors lie: on the CPU it runs the kernel's plain version
 (:mod:`.ref`); on a CUDA device it launches the kernel
-(:mod:`.dasha_update`), which raises if it cannot.  There is no other
-switch, and no fallback from the kernel to the plain version.
+(:mod:`.dasha_update`, :mod:`.randk`), which raises if it cannot.
+There is no other switch, and no fallback from the kernel to the plain
+version.  Each op runs inside :func:`repro_torch.obs.trace.kernel_scope`,
+so ``torch.profiler`` traces name it (``repro.kernel.<name>``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import dasha_update as kernels
-from repro_torch.kernels import ref
+from repro_torch.kernels import randk, ref
+from repro_torch.obs.trace import kernel_scope
 
 Tensor = torch.Tensor
 
@@ -29,6 +34,18 @@ def _on_cuda(x: Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {x.device}")
 
 
+def _scoped(name: str):
+    """Run the op inside ``kernel_scope(name)``."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with kernel_scope(name):
+                return fn(*args, **kwargs)
+        return wrapper
+    return deco
+
+
+@_scoped("dasha_update_batched")
 def dasha_update_batched_op(gn: Tensor, go: Tensor, h: Tensor, gi: Tensor,
                             mask: Tensor, *, b: float, a: float, pa: float
                             ) -> Tuple[Tensor, Tensor, Tensor]:
@@ -41,6 +58,7 @@ def dasha_update_batched_op(gn: Tensor, go: Tensor, h: Tensor, gi: Tensor,
                                         pa=pa)
 
 
+@_scoped("dasha_page_update")
 def dasha_page_update_op(gn: Tensor, go: Tensor, bn: Tensor, bo: Tensor,
                          h: Tensor, gi: Tensor, mask: Tensor, coin: Tensor,
                          *, b: float, a: float, pa: float, p_page: float
@@ -57,6 +75,7 @@ def dasha_page_update_op(gn: Tensor, go: Tensor, bn: Tensor, bo: Tensor,
                                              p_page=p_page)
 
 
+@_scoped("dasha_tail")
 def dasha_tail_op(k: Tensor, h: Tensor, gi: Tensor, mask: Tensor, *,
                   a: float, pa: float) -> Tuple[Tensor, Tensor]:
     """Fused lines 10-11 given ``k`` (Alg. 4).  Returns
@@ -67,6 +86,7 @@ def dasha_tail_op(k: Tensor, h: Tensor, gi: Tensor, mask: Tensor, *,
     return ref.dasha_tail_batched_ref(k, h, gi, mask, a=a, pa=pa)
 
 
+@_scoped("buffered_commit")
 def buffered_commit_op(g: Tensor, m_buf: Tensor, weights: Tensor, *,
                        n_nodes: int) -> Tensor:
     """The async server step ``g + (1/n_nodes) (weights @ m_buf)`` in one
@@ -78,6 +98,7 @@ def buffered_commit_op(g: Tensor, m_buf: Tensor, weights: Tensor, *,
     return ref.buffered_commit_ref(g, m_buf, weights, n_nodes=n_nodes)
 
 
+@_scoped("dasha_h_update")
 def dasha_h_update_op(gn: Tensor, go: Tensor, h: Tensor, mask: Tensor, *,
                       b: float, pa: float) -> Tensor:
     """Line 10 alone over (n, d), Algs. 2/5: ``h_new``."""
@@ -87,6 +108,7 @@ def dasha_h_update_op(gn: Tensor, go: Tensor, h: Tensor, mask: Tensor, *,
     return ref.dasha_h_update_ref(gn, go, h, mask, b=b, pa=pa)
 
 
+@_scoped("dasha_page_h_update")
 def dasha_page_h_update_op(gn: Tensor, go: Tensor, bn: Tensor, bo: Tensor,
                            h: Tensor, mask: Tensor, coin: Tensor, *,
                            b: float, pa: float, p_page: float) -> Tensor:
@@ -100,6 +122,7 @@ def dasha_page_h_update_op(gn: Tensor, go: Tensor, bn: Tensor, bo: Tensor,
                                        pa=pa, p_page=p_page)
 
 
+@_scoped("dasha_payload_blocks")
 def dasha_payload_blocks_op(gn: Tensor, go: Tensor, h: Tensor, gi: Tensor,
                             block_idx: Tensor, *, b: float, a: float,
                             pa: float, scale: float, block_size: int
@@ -115,6 +138,7 @@ def dasha_payload_blocks_op(gn: Tensor, go: Tensor, h: Tensor, gi: Tensor,
                                         block_size=block_size)
 
 
+@_scoped("dasha_page_payload_blocks")
 def dasha_page_payload_blocks_op(gn: Tensor, go: Tensor, bn: Tensor,
                                  bo: Tensor, h: Tensor, gi: Tensor,
                                  block_idx: Tensor, coin: Tensor, *,
@@ -130,3 +154,25 @@ def dasha_page_payload_blocks_op(gn: Tensor, go: Tensor, bn: Tensor,
     return ref.dasha_page_payload_blocks_ref(
         gn, go, bn, bo, h, gi, block_idx, coin, b=b, a=a, pa=pa,
         p_page=p_page, scale=scale, block_size=block_size)
+
+
+@_scoped("block_gather")
+def block_gather_op(payload: Tensor, block_idx: Tensor, *, scale: float,
+                    block_size: int) -> Tensor:
+    """The (n, kb, block_size) blocks of the (n, d) rows at the (n, kb)
+    int64 ``block_idx``, times ``scale``, zero past ``d``."""
+    if _on_cuda(payload):
+        return randk.block_gather(payload, block_idx, scale=scale,
+                                  block_size=block_size)
+    return ref.block_gather_ref(payload, block_idx, scale=scale,
+                                block_size=block_size)
+
+
+@_scoped("block_scatter")
+def block_scatter_op(base: Tensor, vals: Tensor, rows: Tensor) -> Tensor:
+    """``base`` (R, bs) plus ``vals`` (K, bs) at the int64 ``rows`` (K,),
+    in place.  The rows must be distinct: the op does not check (a check
+    would sync), and the kernel would race on a repeat."""
+    if _on_cuda(base):
+        return randk.block_scatter(base, vals, rows)
+    return ref.block_scatter_ref(base, vals, rows)

@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the port's CUDA kernels: the three DASHA-PP
-updates, the sparse wire's tracker and payload passes and the async
-server's buffered commit.
+updates, the sparse wire's tracker and payload passes, the async
+server's buffered commit, and BlockRandK's block gather and scatter.
 
 Each follows its Pallas body's arithmetic operation for operation
 (``repro/kernels/dasha_update.py:159-163``, ``:209-215``, ``:260-262``,
@@ -155,3 +155,21 @@ def dasha_page_payload_blocks_ref(gn: Tensor, go: Tensor, bn: Tensor,
                                                b, p_page),
         (gn, go, bn, bo), gi, h, block_idx, a=a, pa=pa, scale=scale,
         block_size=block_size)
+
+
+def block_gather_ref(payload: Tensor, block_idx: Tensor, *, scale: float,
+                     block_size: int) -> Tensor:
+    """The (n, kb, block_size) blocks of the (n, d) rows named by
+    ``block_idx`` (n, kb), times ``scale``, zero past ``d``
+    (``repro/kernels/randk.py:31-33`` after ``_pad_to``)."""
+    n, d = payload.shape
+    pos, inside = block_positions(block_idx, d, block_size)
+    vals = torch.gather(payload, 1, pos.reshape(n, -1)).reshape(pos.shape)
+    return torch.where(inside, vals * scale, torch.zeros_like(vals))
+
+
+def block_scatter_ref(base: Tensor, vals: Tensor, rows: Tensor) -> Tensor:
+    """``base[rows[k]] += vals[k]`` in place over (R, bs) rows
+    (``repro/kernels/randk.py:58-61``); ``index_add_`` also sums
+    repeated rows, which the kernel's callers never pass."""
+    return base.index_add_(0, rows, vals)

@@ -1,5 +1,5 @@
 """repro_torch.training — the sharded LM trainer of the port:
 ``trainer`` (Trainer, TrainState, the train step), ``loop`` (train),
-``optim`` (the server optimizers) and ``metrics`` (the metrics logger the
-launch CLIs share, a copy of ``repro/training/metrics.py``).
-Checkpoints come with a later slice (ROADMAP)."""
+``optim`` (the server optimizers), ``checkpoints`` (save and restore of
+the train state) and ``metrics`` (the metrics logger the launch CLIs
+share, a copy of ``repro/training/metrics.py``)."""

@@ -1,11 +1,13 @@
-"""The training loop: batches -> step -> metrics (the port of
-``repro/training/loop.py``; checkpoints come with
-``training/checkpoints.py``, ROADMAP).
+"""The training loop: batches -> step -> metrics and checkpoints (the
+port of ``repro/training/loop.py``).
 
-The round's randomness derives from the GLOBAL step carried in
-``state.step``: round ``t`` draws from a ``torch.Generator`` seeded
-``seed + t`` (the reference's ``round_train_key``, ``loop.py:25``), so
-a resumed run continues the stream instead of replaying round 0.
+Both the round's randomness and the checkpoint numbering derive from the
+GLOBAL step carried in ``state.step``: round ``t`` draws from a
+``torch.Generator`` seeded ``seed + t`` (the reference's
+``round_train_key``, ``loop.py:25``), and the state after round ``t`` is
+saved as step ``t + 1``, so a run resumed from a restored state
+continues the stream instead of replaying round 0, and its checkpoints
+extend the earlier run's files instead of overwriting them.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
+from repro_torch.training.checkpoints import save_checkpoint
 from repro_torch.training.metrics import MetricsLogger
 from repro_torch.training.trainer import Trainer, TrainState
 
@@ -34,7 +37,9 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 def train(trainer: Trainer, state: TrainState,
           batches: Iterator[Dict[str, np.ndarray]], num_steps: int,
           logger: Optional[MetricsLogger] = None, log_every: int = 10,
-          seed: int = 0, device="cuda") -> TrainState:
+          seed: int = 0, device="cuda",
+          checkpoint_dir: Optional[str] = None,
+          checkpoint_every: int = 0) -> TrainState:
     logger = logger or MetricsLogger(print_every=log_every)
     dev = torch.device(device)
     start = state.step
@@ -54,6 +59,9 @@ def train(trainer: Trainer, state: TrainState,
             logger.log(gstep, loss=metrics.loss, grad_norm=metrics.grad_norm,
                        bits_sent=metrics.bits_sent,
                        participants=metrics.participants)
+        if checkpoint_dir and checkpoint_every \
+                and (gstep + 1) % checkpoint_every == 0:
+            save_checkpoint(checkpoint_dir, state, gstep + 1)
     if metrics is not None:
         reg = obs_metrics.get_registry()
         reg.gauge("train.bits_sent").set(float(np.sum(

@@ -13,15 +13,21 @@ Step order is Algorithm 1, as in the reference:
            pass over the node batch OR a minibatch pass over its first
            ``page_mini_batch`` examples; only the taken pair is
            computed (the coin is a host bool of the round's draws)
+         * ``finite_mvr`` — each node's FIXED batch examples are the m
+           finite-sum components: the round's draws name
+           ``component_batch`` of them per node (without replacement),
+           whose per-example gradients (n, B, *param) are taken at both
+           points; the engine carries the (n, m, *param) ``h_ij``
     3. node update: h_i, g_i, compressed messages m_i, aggregation ->
        g^{t+1} (:meth:`ShardedDasha.node_update`, in place).
 
 The per-node gradients are a loop over the nodes (the reference's
-``vmap``), each a backward pass over the node's batch.  ``finite_mvr``
-and the async halves (``dispatch_step``/``commit_step``) come with later
-slices (ROADMAP).  ``train_step`` consumes its state: the engine updates
-``g``, ``g_i`` and ``h_i`` in place, as the reference's jitted step
-donates its input.
+``vmap``), each a backward pass over the node's batch; finite-MVR's
+per-example gradients a loop over the ``n B`` drawn examples, each a
+batch of one.  The async halves (``dispatch_step``/``commit_step``) come
+with a later slice (ROADMAP).  ``train_step`` consumes its state: the
+engine updates ``g``, ``g_i``, ``h_i`` and ``h_ij`` in place, as the
+reference's jitted step donates its input.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import torch
 
 from repro_torch.core.sharded import (ShardedDasha, ShardedDashaConfig,
                                       ShardedDashaState, ShardedDraws)
+from repro_torch.core.variants import get_rule
 from repro_torch.models.model import Model
 from repro_torch.training.optim import ServerOptimizer
 
@@ -67,6 +74,23 @@ class TrainerConfig:
     # gradient variant: cache the old-point per-node gradients (None =
     # on iff variant == "gradient"); exact only for fixed node batches
     cache_old_grads: Optional[bool] = None
+    # finite_mvr (a fixed-batch finite-sum setting): m = examples per
+    # node in every batch (sizes h_ij), B = components drawn per round
+    num_components: Optional[int] = None
+    component_batch: int = 1
+
+    def __post_init__(self):
+        rule = get_rule(self.dasha.variant)
+        if rule.component_trackers:
+            if self.num_components is None:
+                raise ValueError(
+                    "finite_mvr needs TrainerConfig.num_components "
+                    "(= examples per node in every batch) to size the "
+                    "h_ij component trackers")
+            if not 1 <= self.component_batch <= self.num_components:
+                raise ValueError(
+                    f"need 1 <= component_batch <= num_components, got "
+                    f"{self.component_batch} / {self.num_components}")
 
 
 def tree_norm(tree: Params) -> Tensor:
@@ -107,7 +131,9 @@ class Trainer:
         self.cfg = cfg
         self.n_nodes = num_nodes
         shapes = {k: tuple(p.shape) for k, p in model.params().items()}
-        self.engine = ShardedDasha(cfg.dasha, num_nodes, shapes)
+        self.engine = ShardedDasha(cfg.dasha, num_nodes, shapes,
+                                   num_components=cfg.num_components,
+                                   component_batch=cfg.component_batch)
         self.rule = self.engine.rule
         self.cache_old = (cfg.cache_old_grads
                           if cfg.cache_old_grads is not None
@@ -141,6 +167,24 @@ class Trainer:
         return self.full_pass(params_new, params_old,
                               {k: v[:, :m] for k, v in batch.items()})
 
+    def component_pass(self, params_new: Params, params_old: Params,
+                       batch: Dict[str, Tensor], component_idx: Tensor):
+        """Finite-MVR's per-example pair (``trainer.py:247-274``): the
+        examples ``component_idx`` (n, B) of every node, each a batch of
+        one.  Returns the losses (n,), the means over the B examples,
+        and the gradients (n, B, *param)."""
+        n, B = component_idx.shape
+        nodes = torch.arange(n, device=component_idx.device)[:, None]
+        examples = {k: v[nodes, component_idx].reshape((n * B, 1)
+                                                       + v.shape[2:])
+                    for k, v in batch.items()}
+        ln, lo, gn, go = self.full_pass(params_new, params_old, examples)
+
+        def per_node(grads):
+            return {k: g.view((n, B) + g.shape[1:]) for k, g in grads.items()}
+        return (ln.view(n, B).mean(dim=1), lo.view(n, B).mean(dim=1),
+                per_node(gn), per_node(go))
+
     def _advance_and_grads(self, state: TrainState,
                            batch: Dict[str, Tensor], draws: ShardedDraws):
         """Phases (1)-(2): the server update of the params with g^t and
@@ -162,6 +206,9 @@ class Trainer:
                     params_new, state.params, batch)
                 g_new = g_old = None
                 node_kwargs = dict(mini_new=b_new, mini_old=b_old)
+        elif self.rule.component_trackers:   # finite_mvr: per-example pair
+            losses_new, losses_old, g_new, g_old = self.component_pass(
+                params_new, state.params, batch, draws.component_idx)
         elif self.cache_old:                 # gradient: reuse old grads
             losses_new, g_new = self._node_grads(params_new, batch)
             if state.cache is None:

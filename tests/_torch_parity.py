@@ -166,24 +166,32 @@ def fresh_port_registry():
 # The sharded trainer's draws
 # ----------------------------------------------------------------------
 
-def sharded_reference_draws(dcfg, n: int, leaf_sizes, key, step: int
+def sharded_reference_draws(dcfg, n: int, leaf_sizes, key, step: int, *,
+                            num_components=None, component_batch: int = 1
                             ) -> Dict[str, object]:
     """The draws ``ShardedDasha.node_update(..., key)`` consumes at
     engine step ``step`` on a mesh with ``n`` nodes and model axis 1
     (``sharded.py:439-504``), as numpy arrays: ``mask`` (n,), ``coin``
-    (PAGE), and ``block_idx`` {leaf: (n, kb)} for each of the
-    ``(name, size)`` pairs of ``leaf_sizes`` in leaf order (compressed
-    wires).  ``dcfg`` is the reference's ``ShardedDashaConfig``."""
+    (PAGE), ``component_idx`` (n, B) (finite-MVR: the trainer's draw of
+    ``component_batch`` of ``num_components`` examples per node,
+    ``repro/training/trainer.py:251-256``), and ``block_idx`` {leaf:
+    (n, kb)} for each of the ``(name, size)`` pairs of ``leaf_sizes`` in
+    leaf order (compressed wires).  ``dcfg`` is the reference's
+    ``ShardedDashaConfig``."""
     from repro.core import participation as ref_participation
     k_part, k_oracle, k_comp = ref_variants.round_keys(key,
                                                        jnp.asarray(step))
     nodes = jnp.arange(n)
     mask = jax.vmap(lambda i: ref_participation.participates(
         dcfg.sampler, k_part, i, n, dcfg.p_a))(nodes)
-    out = {"mask": np.array(mask), "coin": None, "block_idx": None}
+    out = {"mask": np.array(mask), "coin": None, "block_idx": None,
+           "component_idx": None}
     if dcfg.variant == "page":
         out["coin"] = bool(ref_variants.page_coin(
             ref_variants.page_keys(k_oracle)[0], dcfg.p_page))
+    if dcfg.variant == "finite_mvr":
+        out["component_idx"] = np.array(sample_batch_indices(
+            k_oracle, n, num_components, component_batch, replace=False))
     if dcfg.compression_ratio is not None:
         out["block_idx"] = {}
         for li, (name, size) in enumerate(leaf_sizes):
@@ -201,12 +209,15 @@ def port_sharded_draws(draws: Dict[str, object], device="cpu"):
     ``ShardedDraws``."""
     from repro_torch.core.sharded import ShardedDraws
     idx = draws["block_idx"]
+    cidx = draws.get("component_idx")
     return ShardedDraws(
         mask=torch.from_numpy(np.array(draws["mask"], bool)).to(device),
         coin=draws["coin"],
         block_idx=None if idx is None else {
             k: torch.from_numpy(np.array(v, np.int64)).to(device)
-            for k, v in idx.items()})
+            for k, v in idx.items()},
+        component_idx=None if cidx is None else torch.from_numpy(
+            np.array(cidx, np.int64)).to(device))
 
 
 # ----------------------------------------------------------------------
@@ -221,6 +232,9 @@ TRAINER_SEQ, TRAINER_PER_NODE = 32, 2
 # full block of 128 and a tail of 64, so the wire's tail block is used
 TRAINER_D_MODEL = 96
 TRAINER_HP = dict(gamma=0.05, p_a=0.5, p_page=0.5, block_size=128)
+# finite-MVR: each node's TRAINER_PER_NODE examples are its components,
+# one drawn per round
+TRAINER_COMPONENT_BATCH = 1
 TRAINER_WIRES = {"sparse": ("sparse_allgather", 1 / 16),
                  "dense_psum": ("dense_psum", 1 / 16),
                  "uncompressed": ("sparse_allgather", None)}
@@ -244,15 +258,33 @@ def _dasha_hp(ratio):
     return dict(a=p_a / (2 * omega + 1), b=p_a / (2 - p_a))
 
 
+def _fixed_batch(variant: str) -> bool:
+    """The finite-sum variants train on one fixed batch per node."""
+    return variant in ("gradient", "finite_mvr")
+
+
+def _trainer_extra(variant: str) -> Dict[str, int]:
+    """TrainerConfig fields of the variant: finite-MVR's ``m`` (the
+    examples of a node) and ``B``."""
+    if variant == "finite_mvr":
+        return dict(num_components=TRAINER_PER_NODE,
+                    component_batch=TRAINER_COMPONENT_BATCH)
+    return {}
+
+
 def reference_trainer_trajectory(n: int, variant: str, wire: str,
-                                 server: str = "paper"
+                                 server: str = "paper", *,
+                                 dtype: str = "float32",
+                                 steps: int = None
                                  ) -> Dict[str, np.ndarray]:
-    """Run ``repro.training.Trainer`` for :data:`TRAINER_STEPS` steps on
-    an (n, 1) mesh in this process (which must hold ``n`` devices) and
-    return, flat: ``init/<leaf>`` (the weights), per step ``t``
-    ``s<t>/mask``, ``s<t>/coin``, ``s<t>/idx/<leaf>``, ``s<t>/loss``,
-    ``s<t>/grad_norm``, ``s<t>/bits_sent``, ``s<t>/participants``, and
-    the final ``params/``, ``g/``, ``g_i/``, ``h_i/`` leaves."""
+    """Run ``repro.training.Trainer`` for ``steps`` (default
+    :data:`TRAINER_STEPS`) steps on an (n, 1) mesh in this process
+    (which must hold ``n`` devices), the model in ``dtype``, and return,
+    flat: ``init/<leaf>`` (the weights), per step ``t`` ``s<t>/mask``,
+    ``s<t>/coin``, ``s<t>/cidx`` (finite-MVR), ``s<t>/idx/<leaf>``,
+    ``s<t>/loss``, ``s<t>/grad_norm``, ``s<t>/bits_sent``,
+    ``s<t>/participants``, and the final ``params/``, ``g/``, ``g_i/``,
+    ``h_i/`` (and finite-MVR's ``h_ij/``) leaves."""
     from repro.compat import make_mesh, use_mesh
     from repro.core.sharded import ShardedDashaConfig
     from repro.data.sharding import place_batch
@@ -263,8 +295,9 @@ def reference_trainer_trajectory(n: int, variant: str, wire: str,
     from repro.training.trainer import Trainer, TrainerConfig
 
     mesh = make_mesh((n, 1), ("data", "model"))
+    steps = TRAINER_STEPS if steps is None else steps
     cfg = get_smoke_config("granite-3-2b").with_overrides(
-        d_model=TRAINER_D_MODEL)
+        d_model=TRAINER_D_MODEL, dtype=dtype)
     agg, ratio = TRAINER_WIRES[wire]
     dcfg = ShardedDashaConfig(
         gamma=TRAINER_HP["gamma"], p_a=TRAINER_HP["p_a"],
@@ -274,7 +307,8 @@ def reference_trainer_trajectory(n: int, variant: str, wire: str,
         **_dasha_hp(ratio))
     opt = (paper_server(TRAINER_HP["gamma"]) if server == "paper"
            else adamw_server(lr=3e-3, warmup=3))
-    tr = Trainer(Model(cfg), mesh, TrainerConfig(dasha=dcfg, server=opt))
+    tr = Trainer(Model(cfg), mesh, TrainerConfig(dasha=dcfg, server=opt,
+                                                 **_trainer_extra(variant)))
     state = tr.init(jax.random.key(TRAINER_SEED))
     out = {f"init/{k}": v for k, v in flat_tree(state.params).items()}
     leaf_sizes = [(k, v.size) for k, v in flat_tree(state.params).items()]
@@ -282,12 +316,17 @@ def reference_trainer_trajectory(n: int, variant: str, wire: str,
                       num_nodes=n, vocab_size=cfg.vocab_size)
     step_fn = tr.jit_train_step(make_batch(cfg, data, 0))
     with use_mesh(mesh):
-        for t in range(TRAINER_STEPS):
-            batch = make_batch(cfg, data, 0 if variant == "gradient" else t)
+        for t in range(steps):
+            batch = make_batch(cfg, data, 0 if _fixed_batch(variant) else t)
             key = round_train_key(TRAINER_SEED, t)
-            draws = sharded_reference_draws(dcfg, n, leaf_sizes, key, t)
+            draws = sharded_reference_draws(
+                dcfg, n, leaf_sizes, key, t,
+                num_components=TRAINER_PER_NODE,
+                component_batch=TRAINER_COMPONENT_BATCH)
             out[f"s{t}/mask"] = draws["mask"]
             out[f"s{t}/coin"] = np.array(draws["coin"] is True)
+            if draws["component_idx"] is not None:
+                out[f"s{t}/cidx"] = draws["component_idx"]
             for k, v in (draws["block_idx"] or {}).items():
                 out[f"s{t}/idx/{k}"] = v
             state, m = step_fn(state, place_batch(batch, mesh, ("data",)),
@@ -295,17 +334,22 @@ def reference_trainer_trajectory(n: int, variant: str, wire: str,
             for f in ("loss", "grad_norm", "bits_sent", "participants"):
                 out[f"s{t}/{f}"] = np.array(getattr(m, f))
     for part, tree in (("params", state.params), ("g", state.dasha.g),
-                       ("g_i", state.dasha.g_i), ("h_i", state.dasha.h_i)):
-        out.update({f"{part}/{k}": v for k, v in flat_tree(tree).items()})
+                       ("g_i", state.dasha.g_i), ("h_i", state.dasha.h_i),
+                       ("h_ij", state.dasha.h_ij)):
+        if tree is not None:
+            out.update({f"{part}/{k}": v
+                        for k, v in flat_tree(tree).items()})
     return out
 
 
 def port_trainer_trajectory(ref: Dict[str, np.ndarray], n: int,
                             variant: str, wire: str, fused: bool,
-                            server: str = "paper"):
+                            server: str = "paper", *,
+                            dtype: str = "float32", steps: int = None):
     """The port's trainer from the reference's weights, on the CPU, fed
-    the reference's batches and draws (the keys of ``ref``).  Returns
-    ``(final TrainState, per-step metrics)``."""
+    the reference's batches and draws (the keys of ``ref``), for
+    ``steps`` (default :data:`TRAINER_STEPS`) steps in ``dtype``.
+    Returns ``(final TrainState, per-step metrics)``."""
     from repro_torch.core.sharded import ShardedDashaConfig
     from repro_torch.data.synthetic import DataConfig, make_batch
     from repro_torch.models import Model, get_smoke_config
@@ -313,8 +357,11 @@ def port_trainer_trajectory(ref: Dict[str, np.ndarray], n: int,
     from repro_torch.training.optim import adamw_server, paper_server
     from repro_torch.training.trainer import Trainer, TrainerConfig
 
+    from repro_torch.convert import tensor
+
+    steps = TRAINER_STEPS if steps is None else steps
     cfg = get_smoke_config("granite-3-2b").with_overrides(
-        d_model=TRAINER_D_MODEL)
+        d_model=TRAINER_D_MODEL, dtype=dtype)
     agg, ratio = TRAINER_WIRES[wire]
     dcfg = ShardedDashaConfig(
         gamma=TRAINER_HP["gamma"], p_a=TRAINER_HP["p_a"],
@@ -324,17 +371,18 @@ def port_trainer_trajectory(ref: Dict[str, np.ndarray], n: int,
         **_dasha_hp(ratio))
     opt = (paper_server(TRAINER_HP["gamma"]) if server == "paper"
            else adamw_server(lr=3e-3, warmup=3))
-    params = {k[len("init/"):]: torch.from_numpy(np.array(v))
+    params = {k[len("init/"):]: tensor(v, "cpu", cfg.param_dtype)
               for k, v in ref.items() if k.startswith("init/")}
-    tr = Trainer(Model(cfg, params), TrainerConfig(dasha=dcfg, server=opt),
-                 num_nodes=n)
+    tr = Trainer(Model(cfg, params),
+                 TrainerConfig(dasha=dcfg, server=opt,
+                               **_trainer_extra(variant)), num_nodes=n)
     state = tr.init()
     data = DataConfig(seq_len=TRAINER_SEQ, global_batch=TRAINER_PER_NODE * n,
                       num_nodes=n, vocab_size=cfg.vocab_size)
     mets = []
-    for t in range(TRAINER_STEPS):
+    for t in range(steps):
         batch = to_device(make_batch(cfg, data,
-                                     0 if variant == "gradient" else t),
+                                     0 if _fixed_batch(variant) else t),
                           "cpu")
         prefix = f"s{t}/idx/"
         idx = {k[len(prefix):]: v for k, v in ref.items()
@@ -342,7 +390,7 @@ def port_trainer_trajectory(ref: Dict[str, np.ndarray], n: int,
         draws = port_sharded_draws(dict(
             mask=ref[f"s{t}/mask"],
             coin=bool(ref[f"s{t}/coin"]) if variant == "page" else None,
-            block_idx=idx or None))
+            block_idx=idx or None, component_idx=ref.get(f"s{t}/cidx")))
         state, m = tr.train_step(state, batch, draws)
         mets.append(m)
     return state, mets
@@ -359,9 +407,9 @@ TRAINER_ATOL = 2e-5
 
 
 def assert_trainer_parity(ref: Dict[str, np.ndarray], state, mets) -> None:
-    """Params, g, g_i and h_i within rtol 1e-4 and atol TRAINER_ATOL x
-    the leaf's largest magnitude; loss and grad norm within rtol 1e-4;
-    bits and participants equal."""
+    """Params, g, g_i, h_i (and finite-MVR's h_ij) within rtol 1e-4 and
+    atol TRAINER_ATOL x the leaf's largest magnitude; loss and grad norm
+    within rtol 1e-4; bits and participants equal."""
     for t, m in enumerate(mets):
         for f in ("bits_sent", "participants"):
             assert float(getattr(m, f)) == float(ref[f"s{t}/{f}"]), (t, f)
@@ -371,6 +419,8 @@ def assert_trainer_parity(ref: Dict[str, np.ndarray], state, mets) -> None:
                                        atol=1e-6, err_msg=f"step {t} {f}")
     trees = {"params": state.params, "g": state.dasha.g,
              "g_i": state.dasha.g_i, "h_i": state.dasha.h_i}
+    if state.dasha.h_ij is not None:
+        trees["h_ij"] = state.dasha.h_ij
     for part, tree in trees.items():
         for name, got in tree.items():
             want = ref[f"{part}/{name}"]

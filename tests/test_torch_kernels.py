@@ -1,7 +1,8 @@
-"""The port's kernels on the CPU (the three updates and the async
-server's buffered commit): their plain PyTorch versions against the JAX
-package's Pallas kernels run in interpret mode, the op layer's routing,
-and the wrappers' refusals.
+"""The port's kernels on the CPU (the three updates, the async server's
+buffered commit, the sparse wire's passes and BlockRandK's block gather
+and scatter): their plain PyTorch versions against the JAX package's
+Pallas kernels run in interpret mode, the op layer's routing, and the
+wrappers' refusals.
 
 The CUDA kernels themselves build and run only on a card; there
 ``chip_smoke.py`` holds each to its plain version.  Here the same CUDA
@@ -24,15 +25,21 @@ import re
 import shutil
 import subprocess
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _hypo import given, settings, st
 from _torch_parity import numpy_inputs, to_numpy, torch_one_thread  # noqa: F401
 
+from repro.core import variants as ref_variants
 from repro.kernels import dasha_update as pallas
 from repro.kernels import ops as pallas_ops
+from repro.kernels import randk as pallas_randk
+from repro_torch.core import variants as port_variants
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import dasha_update as kernels
+from repro_torch.kernels import randk as randk_kernels
 
 RTOL = ATOL = 1e-6
 HP = dict(b=0.3, a=0.07, pa=0.37)
@@ -516,3 +523,211 @@ def test_sparse_cuda_source_on_the_host_matches_plain_versions(
         assert torch.equal(out, ref.dasha_page_payload_blocks_ref(
             gn, go, bn, bo, h, gi, idx, coin[0], b=b, a=a, pa=pa,
             p_page=P_PAGE, scale=scale, block_size=bs))
+
+
+# ----------------------------------------------------------------------
+# BlockRandK's block gather and block scatter (``kernels/randk.py``):
+# the finite-MVR sparse wire's gather of the payload's selected blocks,
+# and the scatter of every compressed wire's blocks into each node's
+# zero row.  The Pallas kernels are flat, one node's (nb, bs) blocks
+# per call; the port's gather takes node-major (n, d) rows and (n, kb)
+# indices, so each node's row is held to its own call.  Tolerance:
+# exact.  The gather is one float32 multiply per element on both sides,
+# the scatter one float32 add, from the same operands.
+# ----------------------------------------------------------------------
+
+def _gather_case(seed, n, d, block_size, kb):
+    bs, nb = _plan(d, block_size)
+    kb = min(kb, nb)
+    x, = numpy_inputs(seed, 1, (n, d))
+    rng = np.random.default_rng(seed)
+    idx = np.stack([rng.permutation(nb)[:kb] for _ in range(n)])
+    return x, idx.astype(np.int64), bs, nb, kb
+
+
+def _assert_gather_matches_pallas(x, idx, bs, nb, kb, scale):
+    got = ref.block_gather_ref(torch.from_numpy(x), torch.from_numpy(idx),
+                               scale=scale, block_size=bs)
+    assert got.shape == (x.shape[0], kb, bs)
+    for i in range(x.shape[0]):
+        blocks = np.pad(x[i], (0, nb * bs - x.shape[1])).reshape(nb, bs)
+        want = pallas_randk.block_gather_pallas(
+            blocks, idx[i].astype(np.int32), k_blocks=kb, scale=scale,
+            interpret=True)
+        np.testing.assert_array_equal(to_numpy(got[i]), np.array(want))
+
+
+# 192 = 128 + 64: the smoke model's layer norms, a tail block half full
+@pytest.mark.parametrize("d", [1, 7, 129, 192, 2051])
+@pytest.mark.parametrize("block_size", [128, 50])
+@pytest.mark.parametrize("kb", [1, 5])
+def test_block_gather_plain_version_matches_pallas(d, block_size, kb):
+    x, idx, bs, nb, kb = _gather_case(d + kb, 3, d, block_size, kb)
+    _assert_gather_matches_pallas(x, idx, bs, nb, kb, nb / kb)
+
+
+@settings(max_examples=25, deadline=None)
+@given(n=st.integers(1, 4), d=st.integers(1, 3000),
+       block_size=st.sampled_from([4, 50, 64, 128]), kb=st.integers(1, 9),
+       scale=st.floats(0.5, 100.0))
+def test_block_gather_plain_version_matches_pallas_drawn_shapes(
+        n, d, block_size, kb, scale):
+    x, idx, bs, nb, kb = _gather_case(n * d + kb, n, d, block_size, kb)
+    _assert_gather_matches_pallas(x, idx, bs, nb, kb, scale)
+
+
+def _assert_scatter_matches_pallas(seed, r, bs, k):
+    base, = numpy_inputs(seed, 1, (r, bs))
+    vals, = numpy_inputs(seed + 1, 1, (k, bs))
+    rows = np.random.default_rng(seed).permutation(r)[:k]
+    got = ref.block_scatter_ref(torch.from_numpy(base.copy()),
+                                torch.from_numpy(vals),
+                                torch.from_numpy(rows.astype(np.int64)))
+    want = pallas_randk.block_scatter_pallas(base, vals,
+                                             rows.astype(np.int32),
+                                             interpret=True)
+    np.testing.assert_array_equal(to_numpy(got), np.array(want))
+
+
+@pytest.mark.parametrize("r, bs, k", [(1, 1, 1), (5, 7, 2), (9, 128, 9),
+                                      (40, 64, 13)])
+def test_block_scatter_plain_version_matches_pallas(r, bs, k):
+    _assert_scatter_matches_pallas(r * bs + k, r, bs, k)
+
+
+@settings(max_examples=25, deadline=None)
+@given(r=st.integers(1, 60), bs=st.sampled_from([1, 4, 50, 128]),
+       k=st.integers(1, 60))
+def test_block_scatter_plain_version_matches_pallas_drawn_shapes(r, bs, k):
+    _assert_scatter_matches_pallas(r + 7 * bs + k, r, bs, min(k, r))
+
+
+@pytest.mark.parametrize("d, block_size", [(7, 128), (192, 128), (300, 64),
+                                           (2051, 50)])
+def test_block_scatter_rows_equals_per_node_block_scatter_add(d, block_size):
+    """The rows the scatter kernel fills (``block_idx + nb * node`` of
+    one zero buffer) are each node's ``block_scatter_add`` into zeros,
+    bit for bit, in the port and in the reference."""
+    n, kb = 3, 2
+    bs, nb = _plan(d, block_size)
+    kb = min(kb, nb)
+    vals, = numpy_inputs(d, 1, (n, kb, bs))
+    rng = np.random.default_rng(d)
+    idx = np.stack([rng.permutation(nb)[:kb] for _ in range(n)])
+    got = port_variants.block_scatter_rows(torch.from_numpy(vals),
+                                           torch.from_numpy(idx), d, bs)
+    for i in range(n):
+        want = port_variants.block_scatter_add(
+            torch.zeros(d), torch.from_numpy(vals[i]),
+            torch.from_numpy(idx[i]), bs)
+        assert torch.equal(got[i], want)
+        np.testing.assert_array_equal(
+            to_numpy(got[i]), np.array(ref_variants.block_scatter_add(
+                jnp.zeros(d, jnp.float32), jnp.asarray(vals[i]),
+                jnp.asarray(idx[i]), bs)))
+
+
+def test_randk_ops_route_cpu_tensors_to_the_plain_versions():
+    x, idx, bs, _, kb = _gather_case(3, 2, 300, 128, 2)
+    xt, it = torch.from_numpy(x), torch.from_numpy(idx)
+    base = torch.zeros(6, 128)
+    vals = torch.ones(2, 128)
+    rows = torch.tensor([4, 1])
+    kernels.reset_launches()
+    assert torch.equal(ops.block_gather_op(xt, it, scale=1.5, block_size=bs),
+                       ref.block_gather_ref(xt, it, scale=1.5,
+                                            block_size=bs))
+    out = ops.block_scatter_op(base, vals, rows)
+    assert out is base                                 # in place
+    assert torch.equal(out, ref.block_scatter_ref(torch.zeros(6, 128), vals,
+                                                  rows))
+    assert kernels.launches["block_gather"] == 0
+    assert kernels.launches["block_scatter"] == 0
+
+
+def test_randk_wrappers_take_cuda_tensors_only():
+    x = torch.zeros(2, 300)
+    idx = torch.zeros(2, 3, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        randk_kernels.block_gather(x, idx, scale=1.0, block_size=128)
+    with pytest.raises(TypeError, match="int64"):
+        randk_kernels.block_gather(x, idx.int(), scale=1.0, block_size=128)
+    with pytest.raises(ValueError, match=r"\(n, kb\)"):
+        randk_kernels.block_gather(x, idx[0], scale=1.0, block_size=128)
+    with pytest.raises(ValueError, match="positive"):
+        randk_kernels.block_gather(x, idx, scale=1.0, block_size=0)
+    base, vals = torch.zeros(6, 128), torch.zeros(2, 128)
+    rows = torch.tensor([4, 1])
+    with pytest.raises(ValueError, match="CUDA"):
+        randk_kernels.block_scatter(base, vals, rows)
+    with pytest.raises(TypeError, match="int64"):
+        randk_kernels.block_scatter(base, vals, rows.int())
+    with pytest.raises(ValueError, match="shape"):
+        randk_kernels.block_scatter(base, torch.zeros(2, 64), rows)
+    with pytest.raises(ValueError, match=r"\(K, bs\)"):
+        randk_kernels.block_scatter(base, torch.zeros(256), rows)
+
+
+def test_randk_source_names_the_tpu_kernels_it_replaces():
+    src = (build.CSRC / "randk.cu").read_text()
+    for fn in ("block_gather_pallas", "block_scatter_pallas"):
+        assert fn in src and hasattr(pallas_randk, fn)
+    cmd = build.nvcc_command("nvcc", build.CSRC / "randk.cu",
+                             build.BUILD_DIR / "out.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+
+
+@pytest.fixture(scope="module")
+def randk_host_build(tmp_path_factory):
+    """``csrc/randk.cu`` compiled for the host with the stub CUDA header
+    (one thread plays the grid, as for ``dasha_update.cu``)."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no g++ to compile the CUDA source for the host")
+    out = tmp_path_factory.mktemp("host_randk")
+    (out / "cuda_runtime.h").write_text(_HOST_CUDA_STUB)
+    src = (build.CSRC / "randk.cu").read_text()
+    (out / "host.cpp").write_text(re.sub(r"<<<[^>]*>>>", "", src))
+    lib = out / "libhost.so"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-ffp-contract=off",
+                    "-shared", "-fPIC", "-I", str(out), "-o", str(lib),
+                    str(out / "host.cpp")], check=True, capture_output=True,
+                   timeout=300)
+    host = ctypes.CDLL(str(lib))
+    for name, argtypes in randk_kernels._SIGNATURES.items():
+        getattr(host, name).argtypes = argtypes
+        getattr(host, name).restype = ctypes.c_int
+    return host
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n, d, block_size, kb", [
+    (1, 1, 128, 1), (3, 7, 128, 1), (2, 129, 128, 2), (3, 192, 128, 2),
+    (3, 129, 50, 3), (2, 2048, 128, 5), (4, 20958, 128, 3)])
+def test_randk_source_on_the_host_matches_plain_versions(
+        randk_host_build, n, d, block_size, kb, offset):
+    """The gather's block arithmetic, float4 path (offset 0, ``bs`` and
+    ``d`` multiples of 4) and scalar path, and zero tail; the scatter's
+    row offsets: bit for bit against the plain versions."""
+    bs, nb = _plan(d, block_size)
+    x, = _operands(n, d, 1, offset, n * d + kb)
+    gen = torch.Generator().manual_seed(d)
+    idx = torch.stack([torch.randperm(nb, generator=gen)[:kb]
+                       for _ in range(n)])
+    out, = _operands(n * kb, bs, 1, offset, 0)
+    out.fill_(float("nan"))
+    scale = nb / kb
+    assert randk_host_build.block_gather(
+        x.data_ptr(), idx.data_ptr(), out.data_ptr(), n, d, kb, bs, scale,
+        None) == 0
+    want = ref.block_gather_ref(x, idx, scale=scale, block_size=bs)
+    assert torch.equal(out.view(n, kb, bs), want)
+    rows = (idx + nb * torch.arange(n)[:, None]).reshape(-1)
+    base, = _operands(n * nb, bs, 1, offset, 1)
+    expect = ref.block_scatter_ref(base.clone(), want.reshape(-1, bs), rows)
+    vals = _operands(n * kb, bs, 1, offset, 2)[0]
+    vals.copy_(want.reshape(-1, bs))
+    assert randk_host_build.block_scatter(
+        base.data_ptr(), vals.data_ptr(), rows.data_ptr(), n * nb, n * kb,
+        bs, None) == 0
+    assert torch.equal(base, expect)

@@ -1,6 +1,7 @@
 """The port's LM trainer (``repro_torch.training``,
 ``python -m repro_torch.launch.train``) against the JAX package at four
-nodes, and its loop, CLI and state conversion.
+nodes, and its loop, CLI (finite-MVR, the memory estimate) and state
+conversion.
 
 Four nodes: one module-scoped subprocess with four host devices (XLA
 pinned to one thread, its own timeout) runs ``repro.training.Trainer``
@@ -35,7 +36,7 @@ pytestmark = pytest.mark.usefixtures("process_hygiene")
 
 REPO = Path(__file__).resolve().parent.parent
 NODES = 4
-VARIANTS = ("gradient", "mvr", "page")
+VARIANTS = ("gradient", "mvr", "page", "finite_mvr")
 
 
 @pytest.fixture(scope="module")
@@ -134,13 +135,21 @@ def test_train_cli_prints_the_reference_rows(capsys, fresh_port_registry):
 
 
 def test_train_cli_defaults_to_the_card_and_refuses_finite_mvr():
+    """The CLI runs on the card unless the CPU is asked for.  It no
+    longer refuses finite-MVR: ``m`` is the global batch over the nodes
+    and the trackers ``h_ij`` are zero."""
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_cli.build_trainer(train_cli.build_parser().parse_args(
             ["--smoke"]))
-    with pytest.raises(NotImplementedError, match="finite-MVR"):
-        train_cli.build_trainer(_smoke_args("--variant", "finite_mvr"))
+    trainer, state, data, _ = train_cli.build_trainer(
+        _smoke_args("--variant", "finite_mvr", "--component-batch", "2"))
+    assert trainer.engine.num_components == data.per_node == 2
+    assert trainer.engine.component_batch == 2
+    for k, p in state.params.items():
+        assert state.dasha.h_ij[k].shape == (4, 2) + tuple(p.shape)
+        assert not state.dasha.h_ij[k].any()
 
 
 def test_train_state_from_jax_continues_the_reference():
@@ -199,6 +208,148 @@ def test_train_state_from_jax_continues_the_reference():
                        ("h_i", port_state.dasha.h_i)):
         want = flat_tree(state.params if part == "params"
                          else state.dasha.h_i)
+        for k, got in tree.items():
+            np.testing.assert_allclose(to_numpy(got), want[k], rtol=1e-4,
+                                       atol=1e-5 * float(np.max(np.abs(
+                                           want[k])) or 1.0), err_msg=k)
+
+
+def test_train_cli_runs_finite_mvr(capsys, fresh_port_registry):
+    assert train_cli.main(["--device", "cpu", "--smoke", "--variant",
+                           "finite_mvr", "--steps", "2"]) == 0
+    rows = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("[step")]
+    assert len(rows) == 1
+    assert re.fullmatch(r"\[step +0\] wall_s=\S+ loss=\S+ grad_norm=\S+ "
+                        r"bits_sent=\S+ participants=\S+", rows[0]), rows
+
+
+def test_finite_mvr_trains_on_a_fixed_batch_and_checks_its_components():
+    """Finite-MVR's components are the examples of a node's fixed batch
+    (as for the gradient variant); ``component_batch`` must lie in
+    ``[1, m]``, as the reference requires."""
+    args = _smoke_args("--variant", "finite_mvr")
+    _, _, data, arch = train_cli.build_trainer(args)
+    stream = train_cli.batches(args, arch, data)
+    first = next(stream)["tokens"]
+    assert np.array_equal(first, next(stream)["tokens"])
+    with pytest.raises(ValueError, match="component_batch"):
+        train_cli.build_trainer(_smoke_args("--variant", "finite_mvr",
+                                            "--component-batch", "3"))
+
+
+GB = 10 ** 9
+
+
+def test_memory_estimate_refuses_the_whole_model_and_admits_the_cut():
+    """40 layers at ``train_4k`` (global batch 256) need far more than an
+    80 GB card; ``--layers 8 --global-batch 8`` fits, every variant and
+    wire.  On a CUDA device ``build_trainer`` refuses, before it
+    allocates, what the card cannot hold, naming both byte counts."""
+    whole = train_cli.build_parser().parse_args([])
+    assert train_cli.estimate_for(whole) > 80 * GB
+    for variant in VARIANTS:
+        for agg in ("sparse_allgather", "dense_psum"):
+            cut = train_cli.build_parser().parse_args(
+                ["--layers", "8", "--global-batch", "8", "--variant",
+                 variant, "--aggregation", agg])
+            est = train_cli.estimate_for(cut)
+            assert 40 * GB < est < 80 * GB, (variant, agg, est)
+    card = torch.device("cuda", 0)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.cuda, "mem_get_info",
+                   lambda device=None: (79 * GB, 80 * GB))
+        train_cli.check_fits(train_cli.estimate_for(cut), card)
+        with pytest.raises(RuntimeError, match=str(80 * GB)) as err:
+            train_cli.check_fits(train_cli.estimate_for(whole), card)
+        assert str(train_cli.estimate_for(whole)) in str(err.value)
+    train_cli.check_fits(train_cli.estimate_for(whole),
+                         torch.device("cpu"))
+
+
+def test_memory_estimate_counts_the_state_it_names():
+    """The estimate grows by exactly the bytes of what it names: a
+    finite-MVR component tracker per node and example, a layer's
+    parameters in every copy."""
+    from repro_torch.models import count_params, get_smoke_config, \
+        init_params
+    arch = get_smoke_config("granite-3-2b").with_overrides(dtype="bfloat16")
+    p = count_params(init_params(arch, torch.Generator().manual_seed(0),
+                                 "cpu"))
+    est = train_cli.estimate_train_bytes
+
+    def fm(gbatch):
+        return est(arch, 4, gbatch, 64, "finite_mvr", "sparse_allgather")
+
+    # one more example per node: 4 more trackers h_ij (bf16) and one
+    # more example's activations, which depend on the batch only
+    # through the examples of one backward pass (one, for finite-MVR)
+    assert fm(12) - fm(8) == 4 * p * 2
+    two = est(arch.with_overrides(num_layers=2), 4, 8, 64, "mvr",
+              "sparse_allgather")
+    one = est(arch.with_overrides(num_layers=1), 4, 8, 64, "mvr",
+              "sparse_allgather")
+    assert two > one
+
+
+def test_train_state_from_jax_carries_the_component_trackers():
+    """A reference finite-MVR TrainState after two steps converts with its
+    ``h_ij``, and one more step on each side agrees."""
+    from repro.compat import make_mesh, use_mesh
+    from repro.core.sharded import ShardedDashaConfig as RefDashaConfig
+    from repro.data.sharding import place_batch
+    from repro.data.synthetic import DataConfig, make_batch
+    from repro.models import Model as RefModel
+    from repro.models import get_smoke_config
+    from repro.training.optim import paper_server as ref_paper
+    from repro.training.trainer import Trainer as RefTrainer
+    from repro.training.trainer import TrainerConfig as RefTrainerConfig
+    from _torch_parity import (flat_tree, port_sharded_draws,
+                               sharded_reference_draws)
+    from repro_torch.core.sharded import ShardedDashaConfig
+    from repro_torch.models import Model
+    from repro_torch.models import get_smoke_config as port_smoke
+    from repro_torch.training.optim import paper_server
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    kw = dict(gamma=0.05, a=0.05, b=0.3, p_a=0.9, compression_ratio=1 / 8,
+              block_size=64, variant="finite_mvr")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    cfg = get_smoke_config("granite-3-2b").with_overrides(d_model=64)
+    rcfg = RefDashaConfig(data_axes=("data",), **kw)
+    rtr = RefTrainer(RefModel(cfg), mesh, RefTrainerConfig(
+        dasha=rcfg, server=ref_paper(0.05), num_components=2,
+        component_batch=1))
+    state = rtr.init(jax.random.key(1))
+    batch = make_batch(cfg, DataConfig(seq_len=16, global_batch=2,
+                                       num_nodes=1,
+                                       vocab_size=cfg.vocab_size), 0)
+    step = rtr.jit_train_step(batch)
+    with use_mesh(mesh):
+        placed = place_batch(batch, mesh, ("data",))
+        for t in range(2):
+            state, _ = step(state, placed, jax.random.key(t))
+        port_state = convert.train_state_from_jax(state, "cpu")
+        assert port_state.dasha.h_ij is not None
+        leaf_sizes = [(k, v.size) for k, v in flat_tree(state.params).items()]
+        draws = sharded_reference_draws(rcfg, 1, leaf_sizes,
+                                        jax.random.key(2), 2,
+                                        num_components=2)
+        state, m = step(state, placed, jax.random.key(2))
+    trainer = Trainer(
+        Model(port_smoke("granite-3-2b").with_overrides(d_model=64),
+              port_state.params),
+        TrainerConfig(dasha=ShardedDashaConfig(**kw),
+                      server=paper_server(0.05), num_components=2),
+        num_nodes=1)
+    port_state, pm = trainer.train_step(
+        port_state, {"tokens": torch.from_numpy(batch["tokens"])},
+        port_sharded_draws(draws))
+    assert float(pm.bits_sent) == float(m.bits_sent)
+    for part, tree in (("params", port_state.params),
+                       ("h_ij", port_state.dasha.h_ij)):
+        want = flat_tree(state.params if part == "params"
+                         else state.dasha.h_ij)
         for k, got in tree.items():
             np.testing.assert_allclose(to_numpy(got), want[k], rtol=1e-4,
                                        atol=1e-5 * float(np.max(np.abs(
