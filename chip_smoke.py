@@ -62,7 +62,33 @@ line:
                (gradient and finite-MVR), held allclose, the checkpoint
                numbering extended;
 14. train-cli -- ``python -m repro_torch.launch.train --smoke`` on the card;
-15. the card's ``nvidia-smi`` line, the ``kernels`` line, and the ``ok``
+15. paged-kernel -- the paged GQA attention kernel
+               (``csrc/paged_attention.cu``) against its plain version at
+               granite-3-2b's serving shapes (16 slots, 2,048 tokens of
+               context, 32 heads, 8 KV heads, hd 64, bf16 pages): C = 1
+               and C = 256, with and without a 1,024 window, and its
+               decode view; times beside the bound, the plain version and
+               a note of ``paged_gather`` + ``scaled_dot_product_attention``;
+16. serve   -- ``PagedEngine`` on granite-3-2b at all 40 layers, bf16:
+               16 slots, 4,096 tokens a sequence, pages of 16, the
+               dense-equivalent pool of 4,096 pages, chunked prefill of
+               256 tokens a pass, 32 greedy requests of 512-2,048 prompt
+               tokens and 64 new ones; every request finishes, logits
+               finite, the pool conserved and drained, one kernel launch
+               per layer and pass; tokens/s, ms per decode and mixed
+               pass, TTFT and latency, peak memory against the serve
+               CLI's estimate; then the same run under
+               ``for_long_context()`` (window 4,096), whose tokens must
+               equal the first run's; the device's busy share in one
+               decode pass (``torch.profiler``);
+17. serve-trajectory -- ``PagedEngine`` at smoke size (float32) on the
+               card and on the CPU from the same weights: equal tokens,
+               logits allclose;
+18. serve-anchor -- at smoke size on the card, ``PagedEngine`` with one
+               page a sequence against ``DecodeServer``, token for token;
+19. serve-cli -- ``python -m repro_torch.launch.serve --engine paged
+               --no-smoke`` on the card;
+20. the card's ``nvidia-smi`` line, the ``kernels`` line, and the ``ok``
    line, last.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -94,8 +120,12 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import dasha_update as kernels  # noqa: E402
 from repro_torch.kernels import randk  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import paged_attention  # noqa: E402
 from repro_torch.launch import async_train  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.models import layers as rt_layers  # noqa: E402
+from repro_torch import serving  # noqa: E402
 from repro_torch.training import checkpoints  # noqa: E402
 from repro_torch.training import loop as train_loop  # noqa: E402
 from repro_torch.training.metrics import MetricsLogger  # noqa: E402
@@ -198,6 +228,27 @@ KERNEL_OF = {"gradient": "dasha_update_batched",
              "mvr": "dasha_update_batched",
              "page": "dasha_page_update_batched",
              "finite_mvr": "dasha_tail_batched"}
+# Serving granite-3-2b at all 40 layers (bf16) through PagedEngine.  The
+# paged kernel's two rows: launches with C > 1 (chunked-prefill passes)
+# count as #12, those with C = 1 (pure-decode passes) as its decode view
+# #13 (the wrapper's counters).
+PAGED_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+PAGED_KERNELS = {
+    "paged_attention_batched": "src/repro/kernels/paged_attention.py:229",
+    "paged_attention": "src/repro/kernels/paged_attention.py:284"}
+SERVE = dict(batch=16, max_seq=4096, page_size=16, pages=4096, chunk=256)
+SERVE_REQUESTS, SERVE_NEW = 32, 64
+SERVE_PROMPT = (512, 2048)           # prompt tokens, drawn from the seed
+PAGED_CTX = 2048                     # the kernel phase's context a slot
+PAGED_WINDOW = 1024
+# kernel vs plain on the card: the same float32 products, summed in
+# another order (the online softmax's tiles against a full softmax) over
+# up to 2,048 positions
+PAGED_TOL = dict(rtol=1e-4, atol=1e-5)
+# card vs CPU at smoke size (float32): cuBLAS and the CPU sum the model's
+# products in other orders, and the differences travel through two layers
+# and the cache
+SERVE_TRAJ_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def emit(phase, **fields):
@@ -266,14 +317,16 @@ def phase_device():
 
 
 def phase_build():
-    """Both CUDA sources built at once, one ``nvcc`` each."""
-    libs = {SOURCE: kernels.LIBRARY, RANDK_SOURCE: randk.LIBRARY}
+    """The CUDA sources built at once, one ``nvcc`` each."""
+    libs = {SOURCE: kernels.LIBRARY, RANDK_SOURCE: randk.LIBRARY,
+            PAGED_SOURCE: paged_attention.LIBRARY}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         built = dict(zip(libs, pool.map(build.build, libs.values())))
     seconds = time.perf_counter() - t0
     kernels.library()
     randk.library()
+    paged_attention.library()
     for source, b in built.items():
         ptxas = [ln.strip() for ln in b.log.splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -1164,6 +1217,405 @@ def phase_train_cli():
          seconds=time.perf_counter() - t0)
 
 
+def paged_inputs(dev, gen, C, lo, hi):
+    """Serving-shape inputs of the paged kernel: 16 slots of PAGED_CTX
+    tokens each in distinct random pages of a bf16 pool, q (16, C, 32,
+    64) bf16, ``start`` in ``[lo, hi]`` and ``q_lens`` in ``[1, C]``
+    from the seed (``start + q_lens <= PAGED_CTX``)."""
+    arch = serve_arch()
+    B, P = SERVE["batch"], SERVE["page_size"]
+    H, kvh, hd = arch.num_heads, arch.num_kv_heads, arch.hd
+    M = PAGED_CTX // P
+    k = torch.randn(B * M, P, kvh, hd, generator=gen, device=dev).to(
+        torch.bfloat16)
+    v = torch.randn(B * M, P, kvh, hd, generator=gen, device=dev).to(
+        torch.bfloat16)
+    q = torch.randn(B, C, H, hd, generator=gen, device=dev).to(torch.bfloat16)
+    table = torch.randperm(B * M, generator=gen, device=dev).reshape(
+        B, M).to(torch.int32)
+    start = torch.randint(lo, hi + 1, (B,), generator=gen,
+                          device=dev).to(torch.int32)
+    q_lens = (torch.ones(B, dtype=torch.int32, device=dev) if C == 1 else
+              torch.minimum(torch.randint(1, C + 1, (B,), generator=gen,
+                                          device=dev),
+                            PAGED_CTX - start).to(torch.int32))
+    return q, k, v, table, start, q_lens
+
+
+def paged_work(start, q_lens, window, H, kvh, hd):
+    """(K/V bytes, float ops) this run's rows need: each slot's live
+    positions read once per kv head (bf16 K and V), and 4 H hd flops for
+    every (valid query, position it attends) pair."""
+    kv_bytes, flops = 0, 0
+    for s0, n in zip(start.tolist(), q_lens.tolist()):
+        lo = max(0, s0 - window + 1) if window else 0
+        kv_bytes += (s0 + n - lo) * kvh * hd * 2 * 2
+        for c in range(n):
+            pos = s0 + c
+            flops += 4 * H * hd * (min(pos + 1, window) if window
+                                   else pos + 1)
+    return kv_bytes, flops
+
+
+def phase_paged_kernels(dev, name, flush):
+    """The paged attention kernel against its plain version at serving
+    shapes: #12 at C = 256 and C = 1, with and without a window, and
+    #13 (the decode view) at C = 1.  Rows ``c >= q_lens`` are garbage by
+    contract: the kernel writes 0 there, which is checked, and the
+    comparison covers the valid rows.  Returns the rows of the kernels
+    line (the unwindowed cases)."""
+    import torch.nn.functional as F
+    mem_rate, f32_rate = card_rates(name)
+    arch = serve_arch()
+    H, kvh, hd = arch.num_heads, arch.num_kv_heads, arch.hd
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    rows = {}
+    for C, window in ((256, None), (256, PAGED_WINDOW), (1, None),
+                      (1, PAGED_WINDOW)):
+        lo = PAGED_CTX // 2 if C == 1 else 0
+        q, k, v, table, start, q_lens = paged_inputs(
+            dev, gen, C, lo, PAGED_CTX - (1 if C == 1 else C))
+        cases = {"paged_attention_batched": (
+            lambda: paged_attention.paged_attention_batched(
+                q, k, v, table, start, q_lens, window=window),
+            lambda: ref.paged_attention_batched_ref(
+                q, k, v, table, start, q_lens, window=window))}
+        if C == 1:
+            lens = start + 1
+            cases["paged_attention"] = (
+                lambda: paged_attention.paged_attention(
+                    q[:, 0], k, v, table, lens, window=window)[:, None],
+                lambda: ref.paged_attention_ref(
+                    q[:, 0], k, v, table, lens, window=window)[:, None])
+        valid = (torch.arange(C, device=dev)[None, :]
+                 < q_lens[:, None].long())                    # (B, C)
+        kv_bytes, flops = paged_work(start, q_lens, window, H, kvh, hd)
+        nbytes = (kv_bytes + q.numel() * 2 + q.numel() * 4
+                  + table.numel() * 4 + 2 * start.numel() * 4)
+        bytes_ms = nbytes / mem_rate * 1e3
+        ops_ms = flops / f32_rate * 1e3
+
+        def sdpa():
+            kg = rt_layers.paged_gather(k, table).transpose(1, 2)
+            vg = rt_layers.paged_gather(v, table).transpose(1, 2)
+            q_pos = start[:, None].long() + torch.arange(C, device=dev)
+            idx = torch.arange(kg.shape[2], device=dev)
+            mask = idx[None, None] <= q_pos[..., None]
+            if window:
+                mask &= idx[None, None] > q_pos[..., None] - window
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), kg, vg, attn_mask=mask[:, None],
+                enable_gqa=True)
+
+        sdpa_ms = time_ms(sdpa, flush)
+        for kname, (kernel_fn, plain_fn) in cases.items():
+            key = "paged_attention" if C == 1 else kname
+            before = kernels.launches[key]
+            out = kernel_fn()
+            torch.cuda.synchronize()
+            check(kernels.launches[key] == before + 1,
+                  f"{kname} C={C} counted its launch under {key}")
+            plain = plain_fn()
+            check(out.shape == plain.shape == q.shape,
+                  f"{kname} output shape")
+            check(bool((out[~valid] == 0).all()),
+                  f"{kname} C={C}: rows c >= q_lens written 0")
+            err = (out[valid] - plain[valid]).abs().max().item()
+            check(torch.allclose(out[valid], plain[valid], **PAGED_TOL),
+                  f"{kname} C={C} window={window}: max |kernel - plain| = "
+                  f"{err} beyond {PAGED_TOL}")
+            fields = dict(
+                name=kname, route="cuda", source=PAGED_SOURCE,
+                replaces=PAGED_KERNELS[kname], max_abs_err=err,
+                ms=time_ms(kernel_fn, flush),
+                plain_ms=time_ms(plain_fn, flush),
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=None, bytes=nbytes, flops=flops)
+            emit("paged-kernel", **fields, C=C, window=window,
+                 shape=[SERVE["batch"], C, H, hd], kv_heads=kvh,
+                 context=PAGED_CTX, page_size=SERVE["page_size"],
+                 valid_rows=int(valid.sum()), tolerance=PAGED_TOL,
+                 library="none: the page gather and the attention are two "
+                         "PyTorch calls",
+                 sdpa_note_ms=sdpa_ms,
+                 sdpa_note="paged_gather + scaled_dot_product_attention "
+                           "(bf16, enable_gqa), timed beside it")
+            if window is None and (kname != "paged_attention_batched"
+                                   or C > 1):
+                rows[kname] = fields
+        del q, k, v, table
+    torch.cuda.empty_cache()
+    return rows
+
+
+def serve_arch(long_context=False):
+    """granite-3-2b as the reference config gives it: 40 layers, bf16."""
+    arch = rt_models.get_config("granite-3-2b")
+    return arch.for_long_context() if long_context else arch
+
+
+def serve_requests(vocab):
+    rng = np.random.default_rng(SEED)
+    return [serving.Request(
+        uid=i, prompt=rng.integers(1, vocab, int(rng.integers(
+            SERVE_PROMPT[0], SERVE_PROMPT[1] + 1))).tolist(),
+        max_new_tokens=SERVE_NEW) for i in range(SERVE_REQUESTS)]
+
+
+def phase_serve(dev, long_context=False):
+    """PagedEngine at full width; returns (launches by kernel, the
+    generated tokens, the engine)."""
+    arch = serve_arch(long_context)
+    estimate = serve_cli.estimate_serve_bytes(
+        arch, engine="paged", batch=SERVE["batch"], max_seq=SERVE["max_seq"],
+        page_size=SERVE["page_size"], pages=SERVE["pages"],
+        chunk=SERVE["chunk"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = rt_models.Model.create(
+        arch, torch.Generator(device=dev).manual_seed(SEED), dev)
+    engine = serving.PagedEngine(
+        model, None, batch_size=SERVE["batch"], max_seq_len=SERVE["max_seq"],
+        page_size=SERVE["page_size"], num_pages=SERVE["pages"],
+        use_kernel=True, prefill_chunk_tokens=SERVE["chunk"], device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # warm-up: cuBLAS's and the allocator's first calls, on a small pool
+    serving.PagedEngine(
+        model, None, batch_size=2, max_seq_len=SERVE["max_seq"],
+        page_size=SERVE["page_size"], num_pages=64,
+        prefill_chunk_tokens=SERVE["chunk"], device=dev).run(
+        [serving.Request(uid=i, prompt=[5 + i] * (SERVE["chunk"] + 44),
+                         max_new_tokens=3)
+         for i in range(2)])
+    torch.cuda.synchronize()
+    nonfinite = torch.zeros((), dtype=torch.long, device=dev)
+    fused = model.paged_fused_step
+
+    def finite_spy(*args, **kwargs):
+        logits, state = fused(*args, **kwargs)
+        nonfinite.add_((~torch.isfinite(logits)).sum())
+        return logits, state
+
+    model.paged_fused_step = finite_spy
+    reqs = serve_requests(arch.vocab_size)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    done = engine.run(reqs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {k: v for k, v in kernels.launches.items() if v}
+    del model.paged_fused_step
+    peak = torch.cuda.max_memory_allocated() - resident
+    m = engine.metrics()
+    passes = m["decode_steps"] + m["mixed_passes"]
+    tag = "serve-long-context" if long_context else "serve"
+    check(all(len(r.generated) == SERVE_NEW for r in done),
+          f"{tag}: every request finished with {SERVE_NEW} tokens")
+    check(int(nonfinite) == 0, f"{tag}: finite logits")
+    check(monitors.check_pool_conservation(engine.pool).ok,
+          f"{tag}: pool conservation")
+    engine.prefix.drop_all()
+    check(engine.pool.in_use == 0,
+          f"{tag}: the pages in use were those the prefix cache retained")
+    L = arch.num_layers
+    check(counts == {"paged_attention": L * m["decode_steps"],
+                     "paged_attention_batched": L * m["mixed_passes"]},
+          f"{tag}: one kernel launch per layer and pass ({L} x "
+          f"{m['decode_steps']} decode, {L} x {m['mixed_passes']} mixed): "
+          f"{counts}")
+    check(peak <= estimate, f"{tag}: the serve CLI's estimate "
+                            f"{estimate / 1e9:.2f} GB holds the peak "
+                            f"{peak / 1e9:.2f} GB")
+    tokens = sum(len(r.generated) for r in done)
+    wall = engine.wall_seconds
+    emit(tag, arch=arch.name, layers=L, d_model=arch.d_model,
+         heads=arch.num_heads, kv_heads=arch.num_kv_heads, d_ff=arch.d_ff,
+         vocab=arch.vocab_size, dtype=arch.dtype,
+         window=arch.attention_window,
+         params=rt_models.count_params(engine.params), **SERVE,
+         requests=SERVE_REQUESTS, new_tokens=SERVE_NEW,
+         prompt_tokens=sum(len(r.prompt) for r in done),
+         setup_s=setup_s, seconds=seconds, wall_seconds=wall,
+         tokens_per_s=tokens / wall,
+         decode_steps=m["decode_steps"], mixed_passes=m["mixed_passes"],
+         ms_per_decode_pass=m["decode_seconds"] / max(m["decode_steps"], 1)
+         * 1e3,
+         # the run's other wall time (mixed passes, admission, scheduling)
+         # over its mixed passes
+         ms_per_mixed_pass=(wall - m["decode_seconds"])
+         / max(m["mixed_passes"], 1) * 1e3,
+         decode_tokens_per_s=m["decode_tokens"] / max(m["decode_seconds"],
+                                                      1e-9),
+         ttft_p50=m["ttft_p50"], ttft_p95=m["ttft_p95"],
+         latency_p50=m["latency_p50"], latency_p95=m["latency_p95"],
+         peak_gb=peak / 1e9, estimate_gb=estimate / 1e9,
+         estimate_over_peak=estimate / peak,
+         cache_hbm_bytes=m["cache_hbm_bytes"],
+         pool_peak_in_use=m["pool"]["peak_in_use"],
+         prefix_hits=m["pool"]["prefix_hits"],
+         preemptions=m["pool"]["preemptions"], launches=counts)
+    return counts, [list(r.generated) for r in done], engine
+
+
+def phase_serve_breakdown(dev, engine):
+    """One pure-decode pass of the full-width model under torch.profiler:
+    16 slots at 2,047 tokens of context in the engine's pool, C = 1,
+    with the greedy read-back; wall time, the device's busy share and
+    the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    model, B, P = engine.model, SERVE["batch"], SERVE["page_size"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    M = PAGED_CTX // P
+    table = torch.randperm(SERVE["pages"], generator=gen, device=dev)[
+        :B * M].reshape(B, M).to(torch.int32)
+    state = rt_models.model.PagedDecodeState(
+        caches=engine._caches, page_table=table,
+        seq_lens=torch.full((B,), PAGED_CTX - 1, dtype=torch.int32,
+                            device=dev))
+    tokens = torch.randint(1, model.cfg.vocab_size, (B, 1), generator=gen,
+                           device=dev)
+    ones = torch.ones(B, dtype=torch.int32, device=dev)
+
+    def one_pass():
+        with torch.no_grad():
+            logits, _ = model.paged_fused_step(engine.params, tokens, state,
+                                               ones)
+            return torch.argmax(logits, dim=-1).cpu()
+
+    for _ in range(3):
+        one_pass()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_pass()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_ms, launches = busy_share(prof)
+    check(launches > 0, "the profiler saw the card's kernels")
+    top = []
+    for avg in prof.key_averages():
+        t = getattr(avg, "self_device_time_total",
+                    getattr(avg, "self_cuda_time_total", 0.0))
+        if t > 0 and avg.device_type == torch.autograd.DeviceType.CUDA:
+            top.append([avg.key[:60], t / 1e3, avg.count])
+    top.sort(key=lambda r: -r[1])
+    emit("serve-breakdown", slots=B, context=PAGED_CTX,
+         layers=model.cfg.num_layers, pass_wall_ms=wall_ms,
+         pass_device_ms=device_ms, device_busy_share=device_ms / wall_ms,
+         kernel_launches=launches, top_kernels=top[:8])
+
+
+def _smoke_serve_model(device):
+    arch = rt_models.get_smoke_config("granite-3-2b")
+    return rt_models.Model.create(
+        arch, torch.Generator(device=device).manual_seed(SEED), device)
+
+
+def _smoke_requests(vocab, n, seed, lo, hi, new):
+    rng = np.random.default_rng(seed)
+    return [serving.Request(uid=i, prompt=rng.integers(
+        1, vocab, int(rng.integers(lo, hi + 1))).tolist(), max_new_tokens=new)
+        for i in range(n)]
+
+
+def phase_serve_trajectory(dev):
+    """PagedEngine at smoke size (float32) on the card and on the CPU,
+    from the same weights and requests, every logit traced: equal tokens
+    and logits allclose.  Pages of 8, chunks of 16, a pool small enough
+    to preempt (also mid-prefill)."""
+    cpu_model = _smoke_serve_model("cpu")
+    card_model = rt_models.Model(
+        cpu_model.cfg, {k: v.to(dev) for k, v in cpu_model.params().items()})
+    vocab = cpu_model.cfg.vocab_size
+    kw = dict(batch_size=3, max_seq_len=64, page_size=8, num_pages=10,
+              prefill_chunk_tokens=16, trace_logits=True)
+    runs = {}
+    kernels.reset_launches()
+    for where, model, device in (("cpu", cpu_model, "cpu"),
+                                 ("card", card_model, dev)):
+        eng = serving.PagedEngine(model, None, device=device, **kw)
+        runs[where] = (eng, eng.run(_smoke_requests(vocab, 7, SEED, 5, 40,
+                                                    12)))
+    torch.cuda.synchronize()
+    check(kernels.launches["paged_attention"] > 0
+          and kernels.launches["paged_attention_batched"] > 0,
+          f"serve-trajectory: the card's passes went through the kernel: "
+          f"{kernels.launches}")
+    (e_c, out_c), (e_g, out_g) = runs["cpu"], runs["card"]
+    err = 0.0
+    for rc, rg in zip(out_c, out_g):
+        if rc.generated != rg.generated:
+            i = next(j for j, (a, b) in enumerate(zip(rc.generated,
+                                                      rg.generated))
+                     if a != b)
+            top2 = torch.topk(torch.from_numpy(
+                e_c.logit_trace[rc.uid][i]), 2).values
+            raise RuntimeError(
+                f"chip_smoke: serve-trajectory: request {rc.uid} token {i} "
+                f"differs (CPU {rc.generated[i]}, card {rg.generated[i]}); "
+                f"the CPU's top-2 margin {float(top2[0] - top2[1])}")
+        for a, b in zip(e_g.logit_trace[rg.uid], e_c.logit_trace[rc.uid]):
+            a, b = torch.from_numpy(a), torch.from_numpy(b)
+            err = max(err, (a - b).abs().max().item())
+            check(torch.allclose(a, b, **SERVE_TRAJ_TOL),
+                  f"serve-trajectory: request {rc.uid} logits within "
+                  f"{SERVE_TRAJ_TOL}: max abs err {(a - b).abs().max()}")
+    check(e_c.metrics()["pool"] == e_g.metrics()["pool"]
+          and e_g.pool.metrics.preemptions > 0,
+          "serve-trajectory: equal pool accounting, with preemptions")
+    emit("serve-trajectory", requests=len(out_c), **kw,
+         preemptions=e_g.pool.metrics.preemptions,
+         max_abs_logit_err=err, tolerance=SERVE_TRAJ_TOL,
+         launches={k: v for k, v in kernels.launches.items() if v})
+
+
+def phase_serve_anchor(dev):
+    """The reference's parity anchor on the card at smoke size:
+    PagedEngine with one page a sequence (page size = max_seq, pages =
+    slots) against DecodeServer, token for token, more requests than
+    slots."""
+    model = _smoke_serve_model(dev)
+    vocab = model.cfg.vocab_size
+    reqs = lambda: _smoke_requests(vocab, 5, SEED + 1, 2, 8, 6)  # noqa: E731
+    dense = serving.DecodeServer(model, None, batch_size=2, max_seq_len=32,
+                                 device=dev).run(reqs())
+    kernels.reset_launches()
+    paged = serving.PagedEngine(model, None, batch_size=2, max_seq_len=32,
+                                page_size=32, num_pages=2, device=dev)
+    out = paged.run(reqs())
+    torch.cuda.synchronize()
+    check(kernels.launches["paged_attention"] > 0,
+          f"serve-anchor: the paged engine went through the kernel: "
+          f"{kernels.launches}")
+    same = [a.generated == b.generated for a, b in zip(dense, out)]
+    check(all(same), f"serve-anchor: PagedEngine equals DecodeServer token "
+                     f"for token: {same}")
+    emit("serve-anchor", requests=len(out), slots=2, max_seq=32,
+         page_size=32, num_pages=2, equal=same,
+         prefill_forwards=paged.prefill_forwards)
+
+
+def phase_serve_cli():
+    """The serve CLI at full width on the card, at its default sizes."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "granite-3-2b", "--engine", "paged", "--no-smoke"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    rows = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    check(proc.returncode == 0 and rows and rows[0].startswith("served 8 "),
+          f"serve CLI: rc {proc.returncode}\n{proc.stdout}\n{proc.stderr}")
+    emit("serve-cli", returncode=proc.returncode, rows=rows,
+         seconds=time.perf_counter() - t0)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path needs one",
@@ -1210,6 +1662,23 @@ def main():
     phase_train_trajectory(dev)
     phase_train_resume(dev)
     phase_train_cli()
+    flush = torch.zeros(128 << 20 >> 2, device=dev)
+    rows.update(phase_paged_kernels(dev, name, flush))
+    del flush
+    counts, tokens, engine = phase_serve(dev)
+    phase_serve_breakdown(dev, engine)
+    del engine
+    counts_lc, tokens_lc, engine = phase_serve(dev, long_context=True)
+    # window 4,096 covers every context of the run
+    check(tokens_lc == tokens, "serve-long-context: the tokens equal the "
+                               "first run's")
+    del engine
+    for kname in PAGED_KERNELS:
+        launches[kname] = counts.get(kname, 0) + counts_lc.get(kname, 0)
+    torch.cuda.empty_cache()
+    phase_serve_trajectory(dev)
+    phase_serve_anchor(dev)
+    phase_serve_cli()
     for kname, count in launches.items():
         check(count > 0, f"the main path launched {kname}")
         rows[kname]["launches"] = count

@@ -1,5 +1,5 @@
 """Reference arrays into the port: problem data, engine state and draws,
-and the LM trainer's parameters and state.
+the LM trainer's parameters and state, and serving's decode states.
 
 Takes numpy arrays or anything ``np.array`` accepts (a JAX array among
 them) and always copies.  ``np.asarray`` of a JAX array is a read-only
@@ -131,3 +131,47 @@ def train_state_from_jax(ref_state, device="cuda"):
         cache = (tensor(losses, device), params_from_jax(grads, device))
     return TrainState(params=params_from_jax(ref_state.params, device),
                       dasha=dasha, opt=opt, step=step, cache=cache)
+
+
+def _layer_caches(ref_caches, device):
+    """A reference decode-cache tree as the port's tuple of one
+    ``KVCache`` a layer: the reference stacks the layers ``(L, ...)``
+    under its scan, or keeps a tuple when it unrolls."""
+    from repro_torch.models.layers import KVCache
+    if type(ref_caches).__name__ == "KVCache":         # stacked (L, ...)
+        k, v = np.array(ref_caches.k), np.array(ref_caches.v)
+        return tuple(KVCache(k=tensor(k[i], device), v=tensor(v[i], device))
+                     for i in range(k.shape[0]))
+    for c in ref_caches:
+        if type(c).__name__ != "KVCache":
+            raise TypeError(f"no port of decode cache {type(c).__name__} "
+                            "(ROADMAP queue 1, slice 3 item 7)")
+    return tuple(KVCache(k=tensor(c.k, device), v=tensor(c.v, device))
+                 for c in ref_caches)
+
+
+def decode_state_from_jax(ref_state, device="cuda"):
+    """A copy of a reference dense ``DecodeState`` (``repro.models.model``),
+    its ring caches one ``KVCache`` a layer."""
+    from repro_torch.models.model import DecodeState
+    return DecodeState(caches=_layer_caches(ref_state.caches, device),
+                       position=tensor(ref_state.position, device,
+                                       torch.int64))
+
+
+def paged_state_from_jax(ref_state, device="cuda"):
+    """A copy of a reference ``PagedDecodeState``: its pool pages one
+    ``KVCache`` a layer, with the port's scratch page (zeros) appended
+    after the reference's ``num_pages``."""
+    from repro_torch.models.layers import KVCache
+    from repro_torch.models.model import PagedDecodeState
+
+    def with_scratch(x):
+        return torch.cat([x, torch.zeros_like(x[:1])])
+
+    caches = tuple(KVCache(k=with_scratch(c.k), v=with_scratch(c.v))
+                   for c in _layer_caches(ref_state.caches, device))
+    return PagedDecodeState(
+        caches=caches,
+        page_table=tensor(ref_state.page_table, device, torch.int32),
+        seq_lens=tensor(ref_state.seq_lens, device, torch.int32))

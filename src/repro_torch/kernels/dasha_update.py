@@ -36,9 +36,12 @@ launches: Dict[str, int] = {"dasha_update_batched": 0,
                             "dasha_payload_blocks": 0,
                             "dasha_page_payload_blocks": 0,
                             "block_gather": 0,
-                            "block_scatter": 0}
+                            "block_scatter": 0,
+                            "paged_attention_batched": 0,
+                            "paged_attention": 0}
 """Kernel launches since the last :func:`reset_launches`, by kernel: this
-module's and :mod:`.randk`'s."""
+module's, :mod:`.randk`'s and :mod:`.paged_attention`'s (whose one
+kernel counts its decode view apart)."""
 
 
 def reset_launches() -> None:
@@ -119,10 +122,11 @@ def _check_operands(operands: Dict[str, Tuple[Tensor, Tuple[int, ...]]],
 
 
 def _launch(name: str, device: torch.device, *args,
-            lib: Optional[ctypes.CDLL] = None) -> None:
+            lib: Optional[ctypes.CDLL] = None,
+            count: Optional[str] = None) -> None:
     """Launch C function ``name`` of ``lib`` (this module's library by
     default) on the current stream, raise if the launch failed, and count
-    it."""
+    it (under ``count`` where that is given)."""
     lib = library() if lib is None else lib
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -130,7 +134,7 @@ def _launch(name: str, device: torch.device, *args,
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.error_string(err).decode()}")
-    launches[name] += 1
+    launches[count or name] += 1
 
 
 def dasha_update_batched(gn: Tensor, go: Tensor, h: Tensor, gi: Tensor,

@@ -1,13 +1,15 @@
 """The op layer the engines call for Algorithm 1 lines 9-11 (dense, and
-split for the sparse wire), the async server for its commit, and the
-sharded engine for BlockRandK's block gather and scatter.
+split for the sparse wire), the async server for its commit, the
+sharded engine for BlockRandK's block gather and scatter, and the
+serving model for its paged attention.
 
 The port of ``repro/kernels/ops.py:63-186``; the flat ops there
 (``dasha_update_op``, the sharded engine's per-leaf forms) are the
 batched ones here with one row per node.  Each op looks at where its
 tensors lie: on the CPU it runs the kernel's plain version
 (:mod:`.ref`); on a CUDA device it launches the kernel
-(:mod:`.dasha_update`, :mod:`.randk`), which raises if it cannot.
+(:mod:`.dasha_update`, :mod:`.randk`, :mod:`.paged_attention`), which
+raises if it cannot.
 There is no other switch, and no fallback from the kernel to the plain
 version.  Each op runs inside :func:`repro_torch.obs.trace.kernel_scope`,
 so ``torch.profiler`` traces name it (``repro.kernel.<name>``).
@@ -15,12 +17,12 @@ so ``torch.profiler`` traces name it (``repro.kernel.<name>``).
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import dasha_update as kernels
-from repro_torch.kernels import randk, ref
+from repro_torch.kernels import paged_attention, randk, ref
 from repro_torch.obs.trace import kernel_scope
 
 Tensor = torch.Tensor
@@ -176,3 +178,35 @@ def block_scatter_op(base: Tensor, vals: Tensor, rows: Tensor) -> Tensor:
     if _on_cuda(base):
         return randk.block_scatter(base, vals, rows)
     return ref.block_scatter_ref(base, vals, rows)
+
+
+@_scoped("paged_attention_batched")
+def paged_attention_batched_op(q: Tensor, k_pages: Tensor, v_pages: Tensor,
+                               page_table: Tensor, start: Tensor,
+                               q_lens: Tensor, *,
+                               window: Optional[int] = None) -> Tensor:
+    """The fused paged GQA attention of a serve pass: q (B, C, H, hd)
+    against the pool pages (NP, P, kvH, hd) through the (B, M) table,
+    query ``c`` of slot ``b`` at ``start[b] + c``; (B, C, H, hd) float32.
+    Rows ``c >= q_lens`` are garbage by contract (the kernel writes 0
+    there, the plain version attends as the reference's oracle does)."""
+    if _on_cuda(q):
+        return paged_attention.paged_attention_batched(
+            q, k_pages, v_pages, page_table.to(torch.int32),
+            start.to(torch.int32), q_lens.to(torch.int32), window=window)
+    return ref.paged_attention_batched_ref(q, k_pages, v_pages, page_table,
+                                           start, q_lens, window=window)
+
+
+@_scoped("paged_attention")
+def paged_attention_op(q: Tensor, k_pages: Tensor, v_pages: Tensor,
+                       page_table: Tensor, lens: Tensor, *,
+                       window: Optional[int] = None) -> Tensor:
+    """The single-query decode view: q (B, H, hd), ``lens`` (B,) tokens a
+    slot holds counting the one just written; (B, H, hd) float32."""
+    if _on_cuda(q):
+        return paged_attention.paged_attention(
+            q, k_pages, v_pages, page_table.to(torch.int32),
+            lens.to(torch.int32), window=window)
+    return ref.paged_attention_ref(q, k_pages, v_pages, page_table, lens,
+                                   window=window)

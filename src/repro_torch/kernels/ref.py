@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the port's CUDA kernels: the three DASHA-PP
 updates, the sparse wire's tracker and payload passes, the async
-server's buffered commit, and BlockRandK's block gather and scatter.
+server's buffered commit, BlockRandK's block gather and scatter, and the
+paged GQA attention of serving.
 
 Each follows its Pallas body's arithmetic operation for operation
 (``repro/kernels/dasha_update.py:159-163``, ``:209-215``, ``:260-262``,
@@ -12,7 +13,10 @@ buffered commit sums its ``K`` rows one after another in order, as the
 CUDA kernel does; ``w @ m``, whose order BLAS leaves open, would not
 round the same way.  The CUDA kernels in ``csrc/dasha_update.cu``
 round every operation the same way (built with ``--fmad=false``), so on
-the card the two agree exactly.
+the card the two agree exactly.  The paged attention is the exception:
+its plain version is the reference's oracle (a full softmax), and the
+kernel in ``csrc/paged_attention.cu`` walks the pages with an online
+softmax, summing in another order, so the two agree within a tolerance.
 
 The main path calls these only for CPU tensors (:mod:`.ops`); the tests
 and ``chip_smoke.py`` also call them on CUDA tensors to hold the kernels
@@ -20,7 +24,8 @@ to them.  ``mask`` is the (n,) participation indicator, bool or float.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -173,3 +178,52 @@ def block_scatter_ref(base: Tensor, vals: Tensor, rows: Tensor) -> Tensor:
     (``repro/kernels/randk.py:58-61``); ``index_add_`` also sums
     repeated rows, which the kernel's callers never pass."""
     return base.index_add_(0, rows, vals)
+
+
+def paged_attention_batched_ref(q: Tensor, k_pages: Tensor, v_pages: Tensor,
+                                page_table: Tensor, start: Tensor,
+                                q_lens: Tensor, *,
+                                window: Optional[int] = None) -> Tensor:
+    """Batched gather attention over a page pool
+    (``repro/kernels/paged_attention.py:104-130``): q (B, C, H, hd), up to
+    C queries a slot; ``k_pages``/``v_pages`` (NP, P, kvH, hd), cast to
+    float32 whole as the oracle casts them; ``page_table`` (B, M);
+    ``start`` (B,) tokens a slot holds before this pass's writes, so query
+    ``c`` sits at ``start + c``; ``q_lens`` (B,) valid queries a slot
+    (rows ``c >= q_lens`` are garbage by contract; here they attend like
+    the others, as in the oracle).  Masked scores are -1e30 and the scale
+    is ``/ sqrt(hd)``.  Returns (B, C, H, hd) float32."""
+    del q_lens
+    B, C, H, hd = q.shape
+    P, kvh = k_pages.shape[1], k_pages.shape[2]
+    M = page_table.shape[1]
+    G = H // kvh
+    table = page_table.long()
+    k = k_pages[table].reshape(B, M * P, kvh, hd).float()
+    v = v_pages[table].reshape(B, M * P, kvh, hd).float()
+    idx = torch.arange(M * P, device=q.device)[None, None, :]    # (1, 1, S)
+    q_pos = (start.long()[:, None]
+             + torch.arange(C, device=q.device)[None, :])         # (B, C)
+    valid = idx < (q_pos + 1)[:, :, None]
+    if window is not None:
+        valid &= idx > (q_pos[:, :, None] - window)
+    qg = q.reshape(B, C, kvh, G, hd).float()
+    s = torch.einsum("bckgh,bskh->bkgcs", qg, k) / math.sqrt(hd)
+    s = torch.where(valid[:, None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgcs,bskh->bckgh", p, v)
+    return out.reshape(B, C, H, hd)
+
+
+def paged_attention_ref(q: Tensor, k_pages: Tensor, v_pages: Tensor,
+                        page_table: Tensor, lens: Tensor, *,
+                        window: Optional[int] = None) -> Tensor:
+    """The single-query decode view (``paged_attention.py:133-143``):
+    q (B, H, hd), ``lens`` (B,) tokens a slot holds counting the one just
+    written, so ``start = lens - 1`` and one query a slot."""
+    B = q.shape[0]
+    out = paged_attention_batched_ref(
+        q[:, None], k_pages, v_pages, page_table,
+        torch.clamp(lens - 1, min=0),
+        torch.ones(B, dtype=torch.int32, device=q.device), window=window)
+    return out[:, 0]

@@ -97,6 +97,26 @@ class ArchConfig:
     def param_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    @property
+    def supports_decode(self) -> bool:
+        return not self.is_encoder
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if long_500k is natively supported (SSM/hybrid) or via the
+        sliding-window variant."""
+        return (self.arch_type in ("ssm", "hybrid")
+                or self.attention_window is not None
+                or self.long_context_window is not None)
+
+    def for_long_context(self) -> "ArchConfig":
+        """The variant lowered for long_500k: enable the SWA window for
+        full-attention archs (no-op for SSM/hybrid/native-SWA)."""
+        if self.attention_window is None and self.long_context_window:
+            return self.with_overrides(
+                attention_window=self.long_context_window)
+        return self
+
     def with_overrides(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 

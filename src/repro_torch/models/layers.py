@@ -1,23 +1,32 @@
-"""Core neural layers for training: RMSNorm, RoPE, GQA attention (the
-reference's dense-mask and blockwise forms) and the gated MLP.
+"""Core neural layers: RMSNorm, RoPE, GQA attention (the reference's
+dense-mask and blockwise forms, and the decode reads of serving) and the
+gated MLP.
 
-The port of the training subset of ``repro/models/layers.py``: the
-``cache=None`` branch of ``attention_block`` (``:247-300``); the decode
-caches and paged reads come with serving.  Functional, like the
-reference: parameters are dicts of tensors and every matmul layout is
-(in_features, out_features).  Training attention is plain PyTorch with
-the reference's online-softmax blocking (``blockwise_gqa_attention``),
-not a library attention call, so that a later attention kernel has a
-baseline to beat.
+The port of ``repro/models/layers.py``.  Functional, like the reference:
+parameters are dicts of tensors and every matmul layout is
+(in_features, out_features).  :func:`attention_block` is the
+self-attention of training and prefill (``cache=None``,
+``layers.py:289-300``); :func:`decode_attention_block` holds the three
+decode branches (``:247-288``, ``:301-337``): the scalar-position ring
+cache, the per-slot ring cache with its ``update`` mask, and the paged
+write-then-attend pass with ``q_lens``.  Unlike the reference, the
+decode branches write the caches in place (the reference's serving
+engine donates them for the same effect).  Attention is plain PyTorch
+with the reference's online-softmax blocking
+(``blockwise_gqa_attention``), not a library attention call, so that a
+later attention kernel has a baseline to beat; the paged read goes
+through the port's paged-attention kernel op.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels.ops import paged_attention_batched_op
 
 Tensor = torch.Tensor
 
@@ -56,12 +65,22 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> Tensor:
                                          device=device) / head_dim))
 
 
-def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
-    """x: (..., T, H, hd); positions: (..., T)."""
-    hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)
+def rope_angles(positions: Tensor, hd: int, theta: float
+                ) -> Tuple[Tensor, Tensor]:
+    """``(cos, sin)`` of RoPE at ``positions`` (..., T), float32
+    (..., T, 1, hd/2).  A decode pass computes them once for every
+    layer."""
+    freqs = rope_freqs(hd, theta, positions.device)
     ang = positions[..., :, None, None].float() * freqs
-    cos, sin = torch.cos(ang), torch.sin(ang)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float,
+               angles: Optional[Tuple[Tensor, Tensor]] = None) -> Tensor:
+    """x: (..., T, H, hd); positions: (..., T); ``angles`` their
+    :func:`rope_angles`, where the caller has them."""
+    cos, sin = (rope_angles(positions, x.shape[-1], theta) if angles is None
+                else angles)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -70,6 +89,14 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
 # ----------------------------------------------------------------------
 # Attention
 # ----------------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    """One layer's attention cache: dense ring rows ``(B, S, kvH, hd)``
+    (S = cache capacity), or pool pages ``(NP + 1, P, kvH, hd)`` whose
+    last page is the scratch page padded writes land in."""
+    k: Tensor
+    v: Tensor
+
 
 def attention_weights_mask(q_pos: Tensor, k_pos: Tensor, causal: bool,
                            window: Optional[int],
@@ -179,6 +206,47 @@ def blockwise_gqa_attention(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
     return out[:, :Tq].to(v.dtype)
 
 
+def ring_cache_positions(cache_pos: Tensor, S: int) -> Tuple[Tensor, Tensor]:
+    """Per-slot ring-buffer accounting of decode caches: ``cache_pos`` is
+    the (B,) absolute next position of each slot; returns ``(slot,
+    abs_pos)``, ``slot`` (B,) the ring slot to write and ``abs_pos``
+    (B, S) the absolute position every ring slot holds after the write
+    (never-written slots negative, which the masks treat as empty)."""
+    slot = cache_pos % S
+    wraps = cache_pos // S
+    slots = torch.arange(S, device=cache_pos.device)
+    abs_pos = torch.where(slots[None, :] <= slot[:, None],
+                          wraps[:, None] * S + slots[None, :],
+                          (wraps[:, None] - 1) * S + slots[None, :])
+    return slot, abs_pos
+
+
+def decode_attention_mask(q_pos: Tensor, k_pos: Tensor, causal: bool,
+                          window: Optional[int]) -> Tensor:
+    """Batched decode mask: ``q_pos`` (B, T), ``k_pos`` (B, S) ->
+    (B, T, S) boolean, the per-slot form of
+    :func:`attention_weights_mask` (negative ``k_pos`` = empty slot)."""
+    m = torch.ones((q_pos.shape[0], q_pos.shape[1], k_pos.shape[1]),
+                   dtype=torch.bool, device=q_pos.device)
+    if causal:
+        c = q_pos[:, :, None] >= k_pos[:, None, :]
+        if window is not None:
+            c &= q_pos[:, :, None] - k_pos[:, None, :] < window
+        m &= c
+    m &= k_pos[:, None, :] >= 0
+    return m
+
+
+def paged_gather(pages: Tensor, page_table: Tensor) -> Tensor:
+    """One contiguous (B, M * P, ...) view of each slot's pages, from the
+    pool ``pages`` (NP, P, ...) and the (B, M) ``page_table``; padded
+    table entries give rows past the slot's length, which the caller
+    masks."""
+    B, M = page_table.shape
+    g = pages[page_table.long()]                # (B, M, P, ...)
+    return g.reshape((B, M * pages.shape[1]) + tuple(pages.shape[2:]))
+
+
 def gqa_attention(q: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tensor:
     """q: (B, Tq, H, hd); k/v: (B, Tk, kvH, hd); mask: (Tq, Tk) or
     (B, Tq, Tk).  Grouped-query: H = G * kvH."""
@@ -215,10 +283,10 @@ def init_attention(generator: torch.Generator, cfg, device) -> dict:
     return p
 
 
-def attention_block(p: dict, x: Tensor, positions: Tensor, cfg,
-                    causal: bool = True) -> Tensor:
-    """Self-attention over x (B, T, D), pre-norm residual left to the
-    caller; ``positions`` (T,) are ``0..T-1``."""
+def _project(p: dict, x: Tensor, positions: Tensor, cfg,
+             angles: Optional[Tuple[Tensor, Tensor]] = None):
+    """q (B, T, H, hd), k, v (B, T, kvH, hd), RoPE applied to q and k
+    (``angles``: the positions' :func:`rope_angles`)."""
     B, T, D = x.shape
     hd = cfg.hd
     q = x @ p["wq"]
@@ -229,8 +297,21 @@ def attention_block(p: dict, x: Tensor, positions: Tensor, cfg,
     q = q.reshape(B, T, cfg.num_heads, hd)
     k = k.reshape(B, T, cfg.num_kv_heads, hd)
     v = v.reshape(B, T, cfg.num_kv_heads, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if angles is None:
+        angles = rope_angles(positions, hd, cfg.rope_theta)
+    q = apply_rope(q, positions, cfg.rope_theta, angles)
+    k = apply_rope(k, positions, cfg.rope_theta, angles)
+    return q, k, v
+
+
+def attention_block(p: dict, x: Tensor, positions: Tensor, cfg,
+                    causal: bool = True, *, with_cache: bool = False):
+    """Self-attention over x (B, T, D), pre-norm residual left to the
+    caller; ``positions`` (T,) are ``0..T-1``.  Returns the output, and
+    with ``with_cache`` also the layer's ``KVCache`` of k and v
+    (B, T, kvH, hd), which prefill hands to decode."""
+    B, T, D = x.shape
+    q, k, v = _project(p, x, positions, cfg)
     if T > 1024:
         # flash-style blockwise path: O(block^2) memory
         out = blockwise_gqa_attention(
@@ -240,8 +321,129 @@ def attention_block(p: dict, x: Tensor, positions: Tensor, cfg,
         mask = attention_weights_mask(positions, positions, causal,
                                       cfg.attention_window)
         out = gqa_attention(q, k, v, mask)
+    out = out.reshape(B, T, cfg.num_heads * cfg.hd) @ p["wo"]
+    return (out, KVCache(k=k, v=v)) if with_cache else out
+
+
+class PagedPlan(NamedTuple):
+    """The indices of one paged pass, the same in every layer: the int32
+    table, starts and valid lengths the read takes, and where each of
+    the (B, T) tokens is written (``pid``, ``slot``: the scratch page for
+    padding) at its absolute position ``pos``."""
+    table: Tensor
+    start: Tensor
+    q_lens: Tensor
+    pid: Tensor
+    slot: Tensor
+    pos: Tensor
+
+
+def paged_plan(page_table: Tensor, start: Tensor, q_lens: Tensor, T: int,
+               page_size: int, scratch: int) -> PagedPlan:
+    """Token ``c`` of slot ``b`` sits at ``start[b] + c`` and is written
+    into page ``page_table[b, pos // P]`` slot ``pos % P``, or, for
+    ``c >= q_lens[b]``, into page ``scratch``."""
+    M = page_table.shape[1]
+    table = page_table.to(torch.int32)
+    start, q_lens = start.to(torch.int32), q_lens.to(torch.int32)
+    steps = torch.arange(T, dtype=torch.int32, device=start.device)
+    pos = start[:, None] + steps[None]                         # (B, T)
+    pid = torch.gather(table.long(), 1,
+                       torch.clamp(pos.long() // page_size, max=M - 1))
+    pid = torch.where(steps[None] < q_lens[:, None], pid, scratch)
+    return PagedPlan(table=table, start=start, q_lens=q_lens, pid=pid,
+                     slot=(pos % page_size).long(), pos=pos)
+
+
+def decode_attention_block(p: dict, x: Tensor, positions: Tensor, cfg,
+                           cache: KVCache, cache_pos: Tensor, *,
+                           causal: bool = True,
+                           update: Optional[Tensor] = None,
+                           paged_table: Optional[Tensor] = None,
+                           paged_kernel: bool = True,
+                           q_lens: Optional[Tensor] = None,
+                           angles: Optional[Tuple[Tensor, Tensor]] = None,
+                           plan: Optional[PagedPlan] = None
+                           ) -> Tuple[Tensor, KVCache]:
+    """The decode branches of the reference's ``attention_block``; each
+    writes ``cache`` in place and returns ``(output, cache)``.
+
+    * Ring cache, ``cache_pos`` a 0-d tensor: every slot writes its one
+      token at ``cache_pos % S`` (slots in lockstep).
+    * Ring cache, ``cache_pos`` (B,): each slot writes at its own ring
+      position; slots where ``update`` is False keep their bytes (they
+      rewrite what they hold) and their outputs are garbage.
+    * Paged (``paged_table`` (B, M) given): ``cache`` holds pool pages;
+      token ``c`` of slot ``b`` sits at ``cache_pos[b] + c``, is written
+      into page ``paged_table[b, pos // P]`` slot ``pos % P``, and then
+      attends every position up to itself: through the paged-attention
+      kernel op with ``paged_kernel``, else by gathering the slot's pages
+      (the reference's ``use_kernel=False`` read).  Tokens
+      ``c >= q_lens[b]`` are padding: their writes go to the scratch
+      page (the pool's last) and their outputs are garbage.  Without
+      ``q_lens`` one token a slot, masked by ``update``.
+    """
+    B, T, D = x.shape
+    hd = cfg.hd
+    q, k, v = _project(p, x, positions, cfg)
+    window = cfg.attention_window
+    if paged_table is not None:
+        NP, P = cache.k.shape[0] - 1, cache.k.shape[1]   # NP: the scratch
+        M = paged_table.shape[1]
+        start = cache_pos.long()
+        if q_lens is None:
+            qlens = (torch.ones(B, dtype=torch.long, device=x.device)
+                     if update is None else update.long())
+        else:
+            qlens = q_lens.long()
+        steps = torch.arange(T, device=x.device)
+        pos_mat = start[:, None] + steps[None]                 # (B, T)
+        pid = torch.gather(paged_table.long(), 1,
+                           torch.clamp(pos_mat // P, max=M - 1))
+        pid = torch.where(steps[None] < qlens[:, None], pid, NP)
+        slot = pos_mat % P
+        cache.k[pid, slot] = k.to(cache.k.dtype)
+        cache.v[pid, slot] = v.to(cache.v.dtype)
+        if paged_kernel:
+            out = paged_attention_batched_op(
+                q, cache.k, cache.v, paged_table, start, qlens,
+                window=window).to(v.dtype)
+        else:
+            kg = paged_gather(cache.k, paged_table)         # (B, M*P, ...)
+            vg = paged_gather(cache.v, paged_table)
+            k_pos = torch.arange(kg.shape[1], device=x.device)[None].expand(
+                B, kg.shape[1])
+            mask = decode_attention_mask(pos_mat, k_pos, causal, window)
+            out = gqa_attention(q, kg, vg, mask)
+    elif cache_pos.dim() == 0:
+        S = cache.k.shape[1]
+        slot = (cache_pos.long() % S).reshape(1)
+        cache.k.index_copy_(1, slot, k.to(cache.k.dtype))
+        cache.v.index_copy_(1, slot, v.to(cache.v.dtype))
+        # absolute positions of the ring's slots
+        slots = torch.arange(S, device=x.device)
+        wraps = cache_pos // S
+        abs_pos = torch.where(slots <= slot, wraps * S + slots,
+                              (wraps - 1) * S + slots)
+        mask = attention_weights_mask(cache_pos.reshape(1), abs_pos, causal,
+                                      window)
+        out = gqa_attention(q, cache.k, cache.v, mask)
+    else:
+        S = cache.k.shape[1]
+        slot, abs_pos = ring_cache_positions(cache_pos.long(), S)
+        row = torch.arange(B, device=x.device)
+        k_w, v_w = k[:, 0].to(cache.k.dtype), v[:, 0].to(cache.v.dtype)
+        if update is not None:
+            keep = ~update[:, None, None]
+            k_w = torch.where(keep, cache.k[row, slot], k_w)
+            v_w = torch.where(keep, cache.v[row, slot], v_w)
+        cache.k[row, slot] = k_w
+        cache.v[row, slot] = v_w
+        mask = decode_attention_mask(cache_pos[:, None], abs_pos, causal,
+                                     window)
+        out = gqa_attention(q, cache.k, cache.v, mask)
     out = out.reshape(B, T, cfg.num_heads * hd)
-    return out @ p["wo"]
+    return out @ p["wo"], cache
 
 
 # ----------------------------------------------------------------------

@@ -1,0 +1,715 @@
+"""PagedEngine: continuous-batching serving over the page pool, the port
+of ``repro/serving/engine.py``.
+
+The dense :class:`~repro_torch.serving.decode.DecodeServer` holds a
+``(B, max_seq)`` ring cache per slot and teacher-forces prompts token by
+token.  The paged engine replaces both:
+
+* **memory**: attention KV lives in a shared :class:`PagePool`; a
+  request holds ``ceil(tokens / page_size)`` pages, prompt prefixes
+  shared copy-on-write across requests;
+* **prefill**: chunked by default: prompt tokens ride the fused
+  multi-query pass a few at a time, so waiting prompts fold into the
+  SAME pass that advances live decodes.  Bulk (``prefill_chunk_tokens=0``):
+  ONE ``Model.prefill`` forward per prompt, padded to a length bucket,
+  scattered into the request's pages;
+* **decode**: every pass runs ONE fused forward over all active slots
+  against a page table sliced to the smallest power-of-two width that
+  covers the pages in use, so attention work scales with live context;
+* **capacity**: admission queues until pages are free, and a pass that
+  cannot grow preempts the latest admitted request (even mid-chunked-
+  prefill): its pages return to the pool and it re-queues with
+  ``prompt + generated`` as its prompt, which under greedy decoding
+  reproduces the evicted trajectory.
+
+Parity anchor: with ``page_size >= max_seq``, ``num_pages = batch`` and
+greedy sampling, :meth:`run` reproduces ``DecodeServer.run`` token for
+token.  TTFT is stamped at the pass that EMITS a request's first logit.
+
+Where the port differs from the reference: there is no jit, so
+:meth:`prefill_cache_size` counts the distinct bulk-prefill programs the
+reference would have compiled (one per bucket length, and per whether
+the prompt was padded); the pool carries one scratch page past
+``num_pages`` for padded writes, which :meth:`cache_hbm_bytes` does not
+count; the reference's ``place_caches`` (mesh shardings) is not ported.
+A pass uploads its tokens, lengths and page table in one host-to-device
+copy and reads back the greedy tokens, its one sync.  The engine runs on
+the card unless ``device="cpu"`` is asked for; each layer's attention
+reads through the paged-attention kernel (its plain version on the
+CPU) unless ``use_kernel=False`` asks for the reference's gather read.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models.layers import KVCache
+from repro_torch.models.model import Model, PagedDecodeState, map_cache_tree
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import monitors as obs_monitors
+from repro_torch.obs import trace as obs_trace
+from repro_torch.serving.decode import BOS_TOKEN, Request, engine_device
+from repro_torch.serving.pages import PagePool, PrefixCache
+
+DEFAULT_CHUNK_TOKENS = 16
+
+
+def attention_cache_bytes(caches) -> int:
+    """Bytes held by every attention-cache leaf of a decode-state tree."""
+    total = 0
+
+    def count(c):
+        nonlocal total
+        total += sum(x.numel() * x.element_size() for x in c)
+        return c
+
+    map_cache_tree(caches, on_attention=count, on_leaf=lambda c: c)
+    return total
+
+
+def default_buckets(max_seq: int) -> List[int]:
+    """Powers of two up to ``max_seq`` (and ``max_seq`` itself)."""
+    out = []
+    b = 8
+    while b < max_seq:
+        out.append(b)
+        b *= 2
+    out.append(max_seq)
+    return out
+
+
+def _pow2_at_least(n: int, cap: int) -> int:
+    b = 1
+    while b < n:
+        b *= 2
+    return min(b, cap)
+
+
+@dataclasses.dataclass
+class RequestStats:
+    """Per-request lifecycle in serve-pass clock ticks (one tick = one
+    model pass: a bulk prefill or a fused batched pass)."""
+    uid: int
+    enqueued_at: int
+    admitted_at: Optional[int] = None
+    first_token_at: Optional[int] = None
+    finished_at: Optional[int] = None
+    prefill_calls: int = 0
+    prefill_tokens: int = 0
+    shared_tokens: int = 0
+    preemptions: int = 0
+
+    @property
+    def ttft(self) -> Optional[int]:
+        if self.first_token_at is None:
+            return None
+        return self.first_token_at - self.enqueued_at
+
+    @property
+    def latency(self) -> Optional[int]:
+        if self.finished_at is None:
+            return None
+        return self.finished_at - self.enqueued_at
+
+
+class PagedEngine:
+    """Continuous-batching scheduler over a paged KV cache."""
+
+    def __init__(self, model: Model, params, batch_size: int,
+                 max_seq_len: int, page_size: Optional[int] = None,
+                 num_pages: Optional[int] = None, use_kernel: bool = True,
+                 share_prefixes: bool = True, trace_logits: bool = False,
+                 prefill_chunk_tokens: Optional[int] = None,
+                 bucket_sizes: Optional[Sequence[int]] = None,
+                 device="cuda"):
+        cfg = model.cfg
+        if not cfg.supports_decode:
+            raise ValueError(f"{cfg.name} is encoder-only: no decode")
+        if cfg.frontend is not None:
+            raise ValueError("paged engine serves token-frontend archs; "
+                             f"{cfg.name} needs stub embeds (use the dense "
+                             "DecodeServer)")
+        self.device = engine_device(model, device)
+        self.model = model
+        self.params = model.params() if params is None else params
+        self.use_kernel = use_kernel
+        self.batch = batch_size
+        self.max_seq = max_seq_len
+        self.page_size = page_size or min(16, max_seq_len)
+        self.max_pages = -(-max_seq_len // self.page_size)
+        # default pool = dense-equivalent capacity
+        self.num_pages = num_pages or batch_size * self.max_pages
+        self.pool = PagePool(self.num_pages, self.page_size)
+        self.prefix: Optional[PrefixCache] = (
+            PrefixCache(self.pool) if share_prefixes else None)
+
+        # chunked prefill and padded-bucket prefill both need every
+        # layer's decode state to be attention only
+        if prefill_chunk_tokens is None:
+            self.chunk = (DEFAULT_CHUNK_TOKENS if model.attention_only
+                          else 0)
+        else:
+            if prefill_chunk_tokens > 0 and not model.attention_only:
+                raise ValueError(
+                    f"chunked prefill needs an attention-only arch; "
+                    f"{cfg.name} ({cfg.arch_type}) carries recurrent "
+                    "state — use prefill_chunk_tokens=0 (bulk)")
+            self.chunk = int(prefill_chunk_tokens)
+        if bucket_sizes is not None:
+            if bucket_sizes and not model.attention_only:
+                raise ValueError(
+                    "prompt-length bucketing pads prompts, which corrupts "
+                    f"recurrent state; {cfg.name} must prefill unpadded")
+            # an explicit empty sequence disables bucketing
+            self.bucket_sizes = sorted(int(b) for b in bucket_sizes)
+            if self.bucket_sizes and self.bucket_sizes[-1] < max_seq_len:
+                self.bucket_sizes.append(max_seq_len)
+        elif model.attention_only:
+            self.bucket_sizes = default_buckets(max_seq_len)
+        else:
+            self.bucket_sizes = []      # exact-length prefill
+
+        self._caches = model.init_paged_state(
+            batch_size, self.num_pages, self.page_size,
+            self.max_pages).caches
+        self._table = np.zeros((batch_size, self.max_pages), np.int32)
+        self._lens = np.zeros((batch_size,), np.int32)
+        self._next_tok = np.zeros((batch_size, 1), np.int32)
+        # the bulk-prefill programs the reference would compile: one per
+        # (bucket length, padded?)
+        self._prefill_programs: Set[Tuple[int, bool]] = set()
+
+        self.slots: List[Optional[Request]] = [None] * batch_size
+        self._slot_pages: List[List[int]] = [[] for _ in range(batch_size)]
+        # ownership per table entry: a request appends freely into pages
+        # it allocated or COW'd itself; only pages BORROWED via a prefix
+        # match go through the COW gate before a write
+        self._slot_owned: List[List[bool]] = [[] for _ in range(batch_size)]
+        # chunked prefill: the full token list still being fed (None =
+        # slot is decoding); the next token to feed is toks[_lens[slot]]
+        self._pending: List[Optional[List[int]]] = [None] * batch_size
+        self._admit_seq = [-1] * batch_size
+        self._seq_counter = 0
+        self.queue: "deque[Request]" = deque()
+        self.stats: Dict[int, RequestStats] = {}
+        self.logit_trace: Dict[int, List[np.ndarray]] = {}
+        self._trace = trace_logits
+
+        self.clock = 0              # serve passes (prefills + fused passes)
+        self.decode_steps = 0
+        self.prefill_forwards = 0   # passes that ingested prompt tokens
+        self.mixed_passes = 0       # fused passes mixing prefill + decode
+        self.mid_prefill_preemptions = 0
+        self.wall_seconds = 0.0
+        self.decode_seconds = 0.0   # wall time of PURE decode passes
+        self.decode_tokens = 0      # tokens generated in those passes
+
+    # -- accounting -------------------------------------------------------
+    def cache_hbm_bytes(self) -> int:
+        """Static pool footprint: every attention-cache byte of the
+        ``num_pages`` pages (the scratch page is not counted)."""
+        n = self.num_pages
+        return attention_cache_bytes(map_cache_tree(
+            self._caches, on_attention=lambda c: KVCache(k=c.k[:n],
+                                                         v=c.v[:n]),
+            on_leaf=lambda c: c))
+
+    def cache_page_bytes(self) -> int:
+        return self.cache_hbm_bytes() // max(self.num_pages, 1)
+
+    def cache_in_use_bytes(self) -> int:
+        return self.pool.in_use * self.cache_page_bytes()
+
+    def prefill_cache_size(self) -> int:
+        """Distinct bulk-prefill programs run: with bucketing, the
+        number of buckets touched, not of distinct prompt lengths (the
+        reference's jit cache entries)."""
+        return len(self._prefill_programs)
+
+    def reset_perf_counters(self) -> None:
+        """Zero the wall-clock/throughput counters (NOT the request
+        stats): a warm-up run first, then reset and measure."""
+        self.clock = 0
+        self.decode_steps = 0
+        self.prefill_forwards = 0
+        self.mixed_passes = 0
+        self.mid_prefill_preemptions = 0
+        self.wall_seconds = 0.0
+        self.decode_seconds = 0.0
+        self.decode_tokens = 0
+
+    def latency_summary(self) -> dict:
+        """Latency/TTFT percentiles in serve-pass ticks; ``None`` where
+        nothing has completed yet."""
+        lats = [s.latency for s in self.stats.values()
+                if s.latency is not None]
+        ttfts = [s.ttft for s in self.stats.values() if s.ttft is not None]
+
+        def pct(vals, q):
+            return float(np.percentile(vals, q)) if vals else None
+
+        return {
+            "requests": len(lats),
+            "latency_p50": pct(lats, 50),
+            "latency_p95": pct(lats, 95),
+            "ttft_p50": pct(ttfts, 50),
+            "ttft_p95": pct(ttfts, 95),
+        }
+
+    def metrics(self) -> dict:
+        return {
+            "clock": self.clock,
+            "decode_steps": self.decode_steps,
+            "prefill_forwards": self.prefill_forwards,
+            "mixed_passes": self.mixed_passes,
+            "mid_prefill_preemptions": self.mid_prefill_preemptions,
+            "decode_seconds": self.decode_seconds,
+            "decode_tokens": self.decode_tokens,
+            "pool": self.pool.metrics.as_dict(),
+            "pool_utilization": self.pool.utilization(),
+            "cache_hbm_bytes": self.cache_hbm_bytes(),
+            "cache_in_use_bytes": self.cache_in_use_bytes(),
+            **self.latency_summary(),
+        }
+
+    # -- admission --------------------------------------------------------
+    def enqueue(self, req: Request) -> None:
+        total = (len(req.prompt) or 1) + req.max_new_tokens
+        if total > self.max_seq:
+            raise ValueError(f"request {req.uid}: {total} tokens exceeds "
+                             f"max_seq_len={self.max_seq}")
+        if -(-total // self.page_size) > self.num_pages:
+            raise ValueError(f"request {req.uid} alone needs more pages "
+                             f"than the pool holds ({self.num_pages})")
+        self.stats.setdefault(req.uid, RequestStats(uid=req.uid,
+                                                    enqueued_at=self.clock))
+        self.queue.append(req)
+
+    def _restart_tokens(self, req: Request) -> List[int]:
+        toks = list(req.prompt) + list(req.generated)
+        return toks if toks else [BOS_TOKEN]
+
+    def _alloc_or_evict(self) -> Optional[int]:
+        pid = self.pool.alloc()
+        while pid is None and self.prefix is not None and len(self.prefix):
+            if self.prefix.evict(1) == 0:
+                continue            # entry dropped but page still held
+            pid = self.pool.alloc()
+        return pid
+
+    def _bucket_len(self, T: int) -> int:
+        for b in self.bucket_sizes:
+            if b >= T:
+                return b
+        return T
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        self._caches = self.model.copy_cache_page(self._caches, src, dst)
+
+    def _acquire_pages(self, toks: List[int]):
+        """Prefix-match ``toks`` and secure every page the prompt needs:
+        borrowed prefix pages first, fresh pages for the rest, COW on the
+        trailing partially-shared page.  Returns ``(pages, owned,
+        shared_len)``, or None (every side effect rolled back) when the
+        pool cannot hold the prompt."""
+        T = len(toks)
+        P = self.page_size
+        hits_before = self.pool.metrics.prefix_hits
+        if self.prefix is not None:
+            shared, shared_len = self.prefix.match(toks)
+        else:
+            shared, shared_len = [], 0
+        pages = [pid for pid, _ in shared]
+        owned = [False] * len(pages)
+
+        # chunked mode needs at least the LAST prompt token to produce
+        # the first logit: trim a whole-prompt match by one token (and
+        # drop the final matched page if that token was all it covered)
+        if self.chunk and shared_len == T:
+            shared_len = T - 1
+            if shared_len % P == 0 and pages:
+                self.pool.release(pages.pop())
+                owned.pop()
+
+        n_shared = len(pages)
+
+        def rollback():
+            # a failed attempt leaves no trace in the accounting
+            for pid in pages:
+                self.pool.release(pid)
+            self.pool.metrics.prefix_hits = hits_before
+
+        # fresh pages FIRST: failing here keeps the rollback free of side
+        # effects (no COW bytes moved yet)
+        for _ in range(-(-T // P) - len(pages)):
+            pid = self._alloc_or_evict()
+            if pid is None:
+                rollback()
+                return None
+            pages.append(pid)
+            owned.append(True)
+
+        # then COW the trailing shared partial page before later writes
+        # fill the rest of its slots
+        if n_shared and shared_len < T and shared_len % P != 0:
+            new_pid, copied = self.pool.writable(pages[n_shared - 1])
+            if new_pid is None:
+                rollback()
+                return None
+            if copied:
+                self._copy_page(pages[n_shared - 1], new_pid)
+                pages[n_shared - 1] = new_pid
+            owned[n_shared - 1] = True
+        return pages, owned, shared_len
+
+    def _try_admit(self, slot: int, req: Request) -> bool:
+        with obs_trace.span("serve.admit", track="serve",
+                            uid=req.uid, slot=slot) as sp:
+            ok = self._try_admit_impl(slot, req)
+            sp.set(admitted=ok)
+        return ok
+
+    @torch.no_grad()
+    def _try_admit_impl(self, slot: int, req: Request) -> bool:
+        toks = self._restart_tokens(req)
+        T = len(toks)
+        got = self._acquire_pages(toks)
+        if got is None:
+            return False
+        pages, owned, shared_len = got
+
+        self.slots[slot] = req
+        self._slot_pages[slot] = pages
+        self._slot_owned[slot] = owned
+        self._admit_seq[slot] = self._seq_counter
+        self._seq_counter += 1
+        self._table[slot, :] = 0
+        self._table[slot, :len(pages)] = pages
+        st = self.stats[req.uid]
+
+        if self.chunk:
+            # chunked admission: every prompt page is secured now, the
+            # tokens ride the next fused passes; no forward, no
+            # first-token stamp, and the prefix is registered only once
+            # the prompt is written
+            self._lens[slot] = shared_len
+            self._pending[slot] = toks
+            st.admitted_at = self.clock if st.admitted_at is None \
+                else st.admitted_at
+            st.shared_tokens += shared_len
+            return True
+
+        # bulk prefill: ONE forward for the whole prompt, padded to a
+        # length bucket, then its KV scattered into this request's pages
+        # (shared-prefix positions and bucket padding to the scratch page)
+        self._lens[slot] = 0
+        Tb = self._bucket_len(T) if self.bucket_sizes else T
+        padded = toks + [BOS_TOKEN] * (Tb - T)
+        dev = self.device
+        with obs_trace.span("serve.prefill.bulk", track="serve",
+                            uid=req.uid, tokens=T, bucket=Tb):
+            batch = {"tokens": torch.tensor([padded], dtype=torch.int32,
+                                            device=dev)}
+            true_len = torch.tensor(T, device=dev)
+            logits, dstate = self.model.prefill(
+                self.params, batch, true_len=true_len if Tb != T else None)
+            self._prefill_programs.add((Tb, Tb != T))
+            self._caches = self.model.write_prefill_to_pages(
+                self._caches, dstate.caches,
+                torch.from_numpy(self._table[slot].copy()).to(dev),
+                shared_len, slot, page_size=self.page_size,
+                true_len=true_len)
+            self._next_tok[slot, 0] = int(torch.argmax(logits[0]))
+        self._lens[slot] = T
+        self.clock += 1
+        self.prefill_forwards += 1
+
+        st.admitted_at = self.clock if st.admitted_at is None \
+            else st.admitted_at
+        st.prefill_calls += 1
+        st.prefill_tokens += T
+        st.shared_tokens += shared_len
+        if st.first_token_at is None:
+            st.first_token_at = self.clock   # this pass emitted the logit
+        if self.prefix is not None:
+            self.prefix.register(toks, pages)
+        return True
+
+    def _blocked_by_inflight_prefix(self, toks: List[int]) -> bool:
+        """A request sharing at least one page with a prompt STILL BEING
+        FED waits for it (a prefix is registered only once written)
+        instead of allocating duplicate pages it could have borrowed."""
+        if self.prefix is None or not self.chunk:
+            return False
+        for s in range(self.batch):
+            pend = self._pending[s]
+            if pend is None:
+                continue
+            n = 0
+            for a, b in zip(pend, toks):
+                if a != b:
+                    break
+                n += 1
+            if n >= self.page_size:
+                return True
+        return False
+
+    def _admit_pending(self) -> None:
+        for slot in range(self.batch):
+            if self.slots[slot] is not None:
+                continue
+            if not self.queue:
+                return
+            if self._blocked_by_inflight_prefix(
+                    self._restart_tokens(self.queue[0])):
+                return              # FIFO: no head-of-line skipping
+            req = self.queue.popleft()
+            if not self._try_admit(slot, req):
+                self.queue.appendleft(req)
+                return
+
+    # -- preemption -------------------------------------------------------
+    def _free_slot(self, slot: int) -> None:
+        for pid in self._slot_pages[slot]:
+            self.pool.release(pid)
+        self._slot_pages[slot] = []
+        self._slot_owned[slot] = []
+        self._table[slot, :] = 0
+        self._lens[slot] = 0
+        self.slots[slot] = None
+        self._pending[slot] = None
+        self._admit_seq[slot] = -1
+
+    def _preempt(self, slot: int) -> None:
+        req = self.slots[slot]
+        obs_trace.instant("serve.preempt", track="serve", uid=req.uid,
+                          slot=slot,
+                          mid_prefill=self._pending[slot] is not None)
+        self.stats[req.uid].preemptions += 1
+        self.pool.metrics.preemptions += 1
+        if self._pending[slot] is not None:
+            # mid-chunked-prefill: the prefix was never registered, so
+            # the partially-written pages vanish with the release
+            self.mid_prefill_preemptions += 1
+        self._free_slot(slot)
+        # re-queue at the front with everything decoded so far as the
+        # prompt: greedy re-prefill reproduces the pending token exactly
+        self.queue.appendleft(req)
+
+    def _victim(self) -> Optional[int]:
+        """Lowest-priority active slot = latest admitted."""
+        cands = [s for s in range(self.batch) if self.slots[s] is not None]
+        if not cands:
+            return None
+        return max(cands, key=lambda s: self._admit_seq[s])
+
+    def _ensure_capacity(self, slot: int) -> bool:
+        """Make the page the next write lands in writable by this slot:
+        allocate when the sequence crosses a page boundary, COW when the
+        page was borrowed from a prefix match."""
+        pos = int(self._lens[slot])
+        idx = pos // self.page_size
+        pages = self._slot_pages[slot]
+        owned = self._slot_owned[slot]
+        if idx == len(pages):
+            pid = self._alloc_or_evict()
+            if pid is None:
+                return False
+            pages.append(pid)
+            owned.append(True)
+            self._table[slot, idx] = pid
+            return True
+        if not owned[idx]:
+            pid = pages[idx]
+            new_pid, copied = self.pool.writable(pid)
+            if new_pid is None:
+                return False
+            if copied:
+                self._copy_page(pid, new_pid)
+                pages[idx] = new_pid
+                self._table[slot, idx] = new_pid
+            owned[idx] = True
+        return True
+
+    # -- the fused batched pass ------------------------------------------
+    def _active_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self.slots)
+                if r is not None and not r.done]
+
+    def _table_width(self) -> int:
+        """Power-of-two page-table slice covering every active slot's
+        pages: the fused pass attends ``width * page_size`` positions
+        instead of ``max_seq``."""
+        widest = max((len(self._slot_pages[s])
+                      for s in range(self.batch)
+                      if self.slots[s] is not None), default=1)
+        return _pow2_at_least(max(widest, 1), self.max_pages)
+
+    def _upload(self, tokens: np.ndarray, q_lens: np.ndarray, W: int):
+        """The pass's tokens, lengths and table slice in ONE host-to-
+        device copy (a fresh host buffer, so nothing mutates it while the
+        copy is in flight)."""
+        B = self.batch
+        host = np.concatenate([tokens.ravel(), q_lens, self._lens,
+                               self._table[:, :W].ravel()])
+        dev = torch.from_numpy(host).to(self.device)
+        n = tokens.size
+        return (dev[:n].view(tokens.shape), dev[n:n + B],
+                dev[n + B:n + 2 * B], dev[n + 2 * B:].view(B, W))
+
+    def step(self) -> bool:
+        """One fused pass over the active slots: single-token decode for
+        slots past their prompt, up to ``prefill_chunk_tokens`` prompt
+        tokens spread over the slots still ingesting (chunked mode).
+        Returns False when nothing was active (after capacity
+        preemptions)."""
+        with obs_trace.span("serve.pass", track="serve") as sp:
+            return self._step_impl(sp)
+
+    @torch.no_grad()
+    def _step_impl(self, sp) -> bool:
+        # capacity pass for decoding slots, oldest admissions first so
+        # they steal from the youngest (the preemption priority order)
+        for slot in sorted(self._active_slots(),
+                           key=lambda s: self._admit_seq[s]):
+            if self.slots[slot] is None or self._pending[slot] is not None:
+                continue            # preempted earlier / still prefilling
+            while not self._ensure_capacity(slot):
+                victim = self._victim()
+                self._preempt(victim)
+                if victim == slot:
+                    break
+
+        active_idx = self._active_slots()
+        if not active_idx:
+            return False
+
+        # plan the pass: decode slots feed their pending token; chunked
+        # prompt tokens fill a shared budget FIFO over prefilling slots
+        q_lens = np.zeros((self.batch,), np.int32)
+        budget = self.chunk
+        any_prefill = False
+        for i in sorted(active_idx, key=lambda s: self._admit_seq[s]):
+            if self._pending[i] is None:
+                q_lens[i] = 1
+            elif budget > 0:
+                remaining = len(self._pending[i]) - int(self._lens[i])
+                take = min(remaining, budget)
+                q_lens[i] = take
+                budget -= take
+                any_prefill = take > 0
+
+        C = self.chunk if any_prefill else 1
+        tokens = np.zeros((self.batch, C), np.int32)
+        for i in active_idx:
+            n = int(q_lens[i])
+            if n == 0:
+                continue
+            if self._pending[i] is None:
+                tokens[i, 0] = self._next_tok[i, 0]
+            else:
+                lo = int(self._lens[i])
+                tokens[i, :n] = self._pending[i][lo:lo + n]
+
+        W = self._table_width()
+        d_tokens, d_qlens, d_lens, d_table = self._upload(tokens, q_lens, W)
+        state = PagedDecodeState(caches=self._caches, page_table=d_table,
+                                 seq_lens=d_lens)
+        pure_decode = not any_prefill
+        t0 = time.perf_counter() if pure_decode else 0.0
+        logits, new_state = self.model.paged_fused_step(
+            self.params, d_tokens, state, d_qlens,
+            use_kernel=self.use_kernel)
+        self._caches = new_state.caches
+        # repro: ignore[host-sync] -- greedy decode IS the sync point:
+        # the sampled token must land on host to extend each sequence
+        nxt = np.asarray(torch.argmax(logits, dim=-1).cpu())
+        self.clock += 1
+        if pure_decode:
+            self.decode_steps += 1
+            self.decode_seconds += time.perf_counter() - t0
+        else:
+            self.mixed_passes += 1
+            self.prefill_forwards += 1
+        sp.set(clock=self.clock, width=W, active=len(active_idx),
+               tokens=int(q_lens.sum()), pure_decode=pure_decode)
+        obs_trace.counter("pool.pages_live", self.pool.in_use,
+                          track="serve")
+
+        if self._trace:
+            # repro: ignore[host-sync] -- opt-in trace mode only; full
+            # logits are materialized for logprob inspection by request
+            logits_np = np.asarray(logits.float().cpu())
+        for i in active_idx:
+            n = int(q_lens[i])
+            if n == 0:
+                continue
+            req = self.slots[i]
+            st = self.stats[req.uid]
+            if self._pending[i] is None:
+                # decode slot: the fed token materializes, the new
+                # argmax becomes next pass's feed
+                if self._trace:
+                    self.logit_trace.setdefault(req.uid, []).append(
+                        logits_np[i].copy())
+                req.generated.append(int(tokens[i, 0]))
+                self._next_tok[i, 0] = int(nxt[i])
+                self._lens[i] += 1
+                if pure_decode:
+                    self.decode_tokens += 1
+                if req.done:
+                    st.finished_at = self.clock
+                    self._free_slot(i)
+            else:
+                # prefilling slot: advance the prompt watermark
+                self._lens[i] += n
+                st.prefill_calls += 1
+                st.prefill_tokens += n
+                if int(self._lens[i]) >= len(self._pending[i]):
+                    # prompt complete: THIS pass emitted the first logit
+                    # (the TTFT stamp), and only now is the prefix safe
+                    # for sharers to read
+                    toks = self._pending[i]
+                    self._pending[i] = None
+                    self._next_tok[i, 0] = int(nxt[i])
+                    if st.first_token_at is None:
+                        st.first_token_at = self.clock
+                    if self.prefix is not None:
+                        self.prefix.register(toks, self._slot_pages[i])
+        return True
+
+    # -- driver -----------------------------------------------------------
+    def run(self, requests: List[Request]) -> List[Request]:
+        with obs_trace.span("serve.run", track="serve",
+                            requests=len(requests)):
+            out = self._run_impl(requests)
+        obs_metrics.publish_serving(self.metrics())
+        if obs_trace.active():
+            obs_monitors.emit(
+                [obs_monitors.check_pool_conservation(self.pool)])
+        return out
+
+    def _run_impl(self, requests: List[Request]) -> List[Request]:
+        t0 = time.perf_counter()
+        for r in requests:
+            self.enqueue(r)
+        while True:
+            self._admit_pending()
+            if not self._active_slots():
+                if not self.queue:
+                    break
+                # queued work but nothing admissible: spill the prefix
+                # cache back to the pool and retry; a request the empty
+                # pool still cannot hold was rejected at enqueue
+                if self.prefix is not None and len(self.prefix):
+                    self.prefix.drop_all()
+                    continue
+                raise RuntimeError("admission stuck with an empty pool")
+            self.step()
+        self.wall_seconds += time.perf_counter() - t0
+        return requests

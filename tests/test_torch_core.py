@@ -87,7 +87,7 @@ COPIES = {"core/wire.py": (), "core/theory.py": (), "fl/events.py": (),
           "fl/staleness.py": (), "fl/latency.py": (),
           "fl/client_store.py": (), "obs/trace.py": ("kernel_scope",),
           "obs/metrics.py": (), "obs/monitors.py": (),
-          "training/metrics.py": ()}
+          "training/metrics.py": (), "serving/pages.py": ()}
 
 
 def _code_without_imports(path: Path, differing=()) -> str:
@@ -358,7 +358,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
     for sub in ("core", "kernels", "fl", "obs", "launch", "training",
-                "models", "configs", "data"):
+                "models", "configs", "data", "serving"):
         assert any(f.parent.name == sub for f in files), sub
     for path in files:
         for mod in _imported_modules(path):
@@ -370,7 +370,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "repro_torch.launch.async_train, repro_torch.models, "
             "repro_torch.data, repro_torch.core.sharded, "
             "repro_torch.training.trainer, repro_torch.training.loop, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.serving, "
+            "repro_torch.kernels.paged_attention, "
+            "repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")

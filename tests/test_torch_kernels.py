@@ -1,8 +1,8 @@
 """The port's kernels on the CPU (the three updates, the async server's
-buffered commit, the sparse wire's passes and BlockRandK's block gather
-and scatter): their plain PyTorch versions against the JAX package's
-Pallas kernels run in interpret mode, the op layer's routing, and the
-wrappers' refusals.
+buffered commit, the sparse wire's passes, BlockRandK's block gather
+and scatter, and serving's paged attention): their plain PyTorch
+versions against the JAX package's Pallas kernels run in interpret
+mode, the op layer's routing, and the wrappers' refusals.
 
 The CUDA kernels themselves build and run only on a card; there
 ``chip_smoke.py`` holds each to its plain version.  Here the same CUDA
@@ -18,7 +18,12 @@ body, worth an ulp on values of order one.  The buffered commit sums
 ``K`` rows, which XLA's ``jnp.sum`` orders as it likes and the plain
 version takes in order; there rtol = 1e-5, atol = 1e-6, as the
 reference's own test of its kernel against ``g + (w @ m) / n``
-(tests/test_fl.py).
+(tests/test_fl.py).  The paged attention is held at rtol = atol = 1e-5,
+as the reference holds its own kernel to its oracle
+(tests/test_chunked_prefill.py): the oracle's full softmax and the
+Pallas body's online softmax sum in other orders.  Its CUDA source, in
+the host build, computes the valid rows (``c < q_lens``) within the same
+tolerance of the plain version and writes 0 in the others.
 """
 import ctypes
 import re
@@ -35,10 +40,12 @@ from _torch_parity import numpy_inputs, to_numpy, torch_one_thread  # noqa: F401
 from repro.core import variants as ref_variants
 from repro.kernels import dasha_update as pallas
 from repro.kernels import ops as pallas_ops
+from repro.kernels import paged_attention as pallas_paged
 from repro.kernels import randk as pallas_randk
 from repro_torch.core import variants as port_variants
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import dasha_update as kernels
+from repro_torch.kernels import paged_attention as paged_kernels
 from repro_torch.kernels import randk as randk_kernels
 
 RTOL = ATOL = 1e-6
@@ -731,3 +738,238 @@ def test_randk_source_on_the_host_matches_plain_versions(
         base.data_ptr(), vals.data_ptr(), rows.data_ptr(), n * nb, n * kb,
         bs, None) == 0
     assert torch.equal(base, expect)
+
+
+
+# ----------------------------------------------------------------------
+# The paged GQA attention (serving)
+# ----------------------------------------------------------------------
+
+PAGED_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _paged_case(seed, *, B=2, C=3, H=4, kvh=2, hd=8, P=4, NP=16, M=4,
+                bf16=False, q_lens_lo=1):
+    """Inputs from a numpy seed at the reference test's shapes
+    (tests/test_chunked_prefill.py): random distinct pages, ``start``
+    and ``q_lens``; pages rounded to bfloat16 with ``bf16``.  Returns
+    the JAX arrays and the port's tensors."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, C, H, hd), np.float32)
+    k = rng.standard_normal((NP, P, kvh, hd), np.float32)
+    v = rng.standard_normal((NP, P, kvh, hd), np.float32)
+    table = rng.permutation(NP)[:B * M].reshape(B, M).astype(np.int32)
+    start = rng.integers(0, M * P - C + 1, B).astype(np.int32)
+    q_lens = rng.integers(q_lens_lo, C + 1, B).astype(np.int32)
+    jx = [jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(table),
+          jnp.asarray(start), jnp.asarray(q_lens)]
+    tx = [torch.from_numpy(a) for a in (q, k, v, table, start, q_lens)]
+    if bf16:
+        jx[1], jx[2] = jx[1].astype(jnp.bfloat16), jx[2].astype(jnp.bfloat16)
+        tx[1], tx[2] = tx[1].to(torch.bfloat16), tx[2].to(torch.bfloat16)
+    return jx, tx
+
+
+@settings(max_examples=6, deadline=None)
+@given(seed=st.integers(0, 1000), windowed=st.booleans(),
+       bf16=st.booleans())
+def test_paged_attention_plain_version_matches_oracle_and_pallas(
+        seed, windowed, bf16):
+    """#12: the plain version against the reference's oracle and its
+    Pallas kernel in interpret mode, the whole array (rows past
+    ``q_lens`` attend like the others in all three)."""
+    window = 5 if windowed else None
+    jx, tx = _paged_case(seed, bf16=bf16)
+    got = ref.paged_attention_batched_ref(*tx, window=window)
+    oracle = pallas_paged.paged_attention_batched_ref(*jx, window=window)
+    pallas_out = pallas_paged.paged_attention_batched_pallas(
+        *jx, window=window, interpret=True)
+    assert got.dtype == torch.float32 and got.shape == tx[0].shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), **PAGED_TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas_out),
+                               **PAGED_TOL)
+
+
+@pytest.mark.parametrize("windowed", [False, True])
+@pytest.mark.parametrize("page_size", [4, 8])
+def test_paged_attention_decode_view_matches_oracle_and_pallas(page_size,
+                                                               windowed):
+    """#13, the C = 1 view with ``lens`` counting the token just
+    written, at the reference test's shapes (tests/test_paged_engine.py)."""
+    window = 5 if windowed else None
+    B, H, kvh, hd, NP, M = 3, 4, 2, 8, 12, 3
+    rng = np.random.default_rng(page_size + 7 * windowed)
+    q = rng.standard_normal((B, H, hd), np.float32)
+    k = rng.standard_normal((NP, page_size, kvh, hd), np.float32)
+    v = rng.standard_normal((NP, page_size, kvh, hd), np.float32)
+    table = rng.permutation(NP)[:B * M].reshape(B, M).astype(np.int32)
+    lens = rng.integers(1, M * page_size + 1, B).astype(np.int32)
+    args = (q, k, v, table, lens)
+    got = ref.paged_attention_ref(*map(torch.from_numpy, args),
+                                  window=window)
+    oracle = pallas_paged.paged_attention_ref(*map(jnp.asarray, args),
+                                              window=window)
+    pallas_out = pallas_paged.paged_attention_pallas(
+        *map(jnp.asarray, args), window=window, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), **PAGED_TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas_out),
+                               **PAGED_TOL)
+
+
+def test_paged_attention_ops_route_by_device(monkeypatch):
+    """A CPU tensor reaches the plain version; a CUDA tensor reaches the
+    kernel's wrapper (a spy stands in for it here), int32 indices."""
+    _, (q, k, v, table, start, q_lens) = _paged_case(3)
+    assert torch.equal(
+        ops.paged_attention_batched_op(q, k, v, table, start, q_lens),
+        ref.paged_attention_batched_ref(q, k, v, table, start, q_lens))
+    lens = start + 1
+    assert torch.equal(ops.paged_attention_op(q[:, 0], k, v, table, lens),
+                       ref.paged_attention_ref(q[:, 0], k, v, table, lens))
+    assert kernels.launches["paged_attention_batched"] == 0
+    assert kernels.launches["paged_attention"] == 0
+    calls = []
+
+    def spy(name):
+        def record(*args, **kwargs):
+            calls.append((name, [a.dtype for a in args[3:]], kwargs))
+            return "launched"
+        return record
+
+    monkeypatch.setattr(ops, "_on_cuda", lambda x: True)
+    monkeypatch.setattr(paged_kernels, "paged_attention_batched",
+                        spy("batched"))
+    monkeypatch.setattr(paged_kernels, "paged_attention", spy("decode"))
+    assert ops.paged_attention_batched_op(
+        q, k, v, table.long(), start.long(), q_lens, window=5) == "launched"
+    assert ops.paged_attention_op(q[:, 0], k, v, table, lens) == "launched"
+    assert calls == [("batched", [torch.int32] * 3, {"window": 5}),
+                     ("decode", [torch.int32] * 2, {"window": None})]
+
+
+def test_paged_attention_wrappers_take_cuda_tensors_only():
+    _, (q, k, v, table, start, q_lens) = _paged_case(4)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_kernels.paged_attention_batched(q, k, v, table, start, q_lens)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_kernels.paged_attention(q[:, 0], k, v, table, start + 1)
+    with pytest.raises(TypeError, match="int32"):
+        paged_kernels.paged_attention_batched(q, k, v, table.long(), start,
+                                              q_lens)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        paged_kernels.paged_attention_batched(q.double(), k, v, table,
+                                              start, q_lens)
+    with pytest.raises(ValueError, match="hd <= 64"):
+        big = torch.zeros(2, 1, 4, 128)
+        pages = torch.zeros(4, 4, 2, 128)
+        paged_kernels.paged_attention_batched(big, pages, pages, table,
+                                              start, q_lens)
+    with pytest.raises(ValueError, match="shape"):
+        paged_kernels.paged_attention_batched(q, k, v[:, :2], table, start,
+                                              q_lens)
+
+
+def test_paged_attention_source_names_the_tpu_kernels_it_replaces():
+    src = (build.CSRC / "paged_attention.cu").read_text()
+    for fn in ("paged_attention_batched_pallas", "paged_attention_pallas"):
+        assert fn in src and hasattr(pallas_paged, fn)
+    cmd = build.nvcc_command("nvcc", build.CSRC / "paged_attention.cu",
+                             build.BUILD_DIR / "out.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+
+
+# The paged kernel keeps K/V tiles in shared memory and reduces over a
+# warp: on the host one thread is a warp of one lane that works every
+# row of its block.
+_PAGED_HOST_STUB = _HOST_CUDA_STUB + r"""
+#include <cmath>
+#define __shared__ static
+#define PA_LANES 1
+#define PA_ROWS_PER_WARP 16
+inline void __syncthreads() {}
+inline float __shfl_sync(unsigned, float v, int) { return v; }
+inline float __shfl_xor_sync(unsigned, float v, int) { return v; }
+"""
+
+
+@pytest.fixture(scope="module")
+def paged_host_build(tmp_path_factory):
+    """``csrc/paged_attention.cu`` compiled for the host."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no g++ to compile the CUDA source for the host")
+    out = tmp_path_factory.mktemp("host_paged")
+    (out / "cuda_runtime.h").write_text(_PAGED_HOST_STUB)
+    src = (build.CSRC / "paged_attention.cu").read_text()
+    (out / "host.cpp").write_text(re.sub(r"<<<[^>]*>>>", "", src))
+    lib = out / "libhost.so"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-ffp-contract=off",
+                    "-shared", "-fPIC", "-I", str(out), "-o", str(lib),
+                    str(out / "host.cpp")], check=True, capture_output=True,
+                   timeout=300)
+    host = ctypes.CDLL(str(lib))
+    host.paged_attention.argtypes = paged_kernels._SIGNATURE
+    host.paged_attention.restype = ctypes.c_int
+    host.paged_attention_splits.argtypes = paged_kernels._SPLITS_SIGNATURE
+    host.paged_attention_splits.restype = ctypes.c_int
+    return host
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("dtypes", ["f32", "bf16", "bf16-q", "bf16-pages"])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", [
+    # B, C, H, kvH, hd, P, NP, M, window
+    (2, 3, 4, 2, 8, 4, 16, 4, None), (2, 3, 4, 2, 8, 4, 16, 4, 5),
+    (3, 17, 4, 2, 32, 16, 20, 5, None), (3, 17, 4, 2, 32, 16, 20, 5, 7),
+    (2, 1, 32, 8, 64, 16, 40, 9, None), (2, 70, 32, 8, 64, 16, 40, 12, 100),
+    (1, 5, 2, 1, 64, 3, 10, 7, 4)])
+def test_paged_attention_source_on_the_host_matches_plain_version(
+        paged_host_build, shape, offset, dtypes, splits):
+    """The kernel's page walk (table lookups, pages that do not divide the
+    tile, windows that skip tiles), its row tiles over (c, g), the 16-byte
+    and scalar load paths (offset 1: pages not 16-byte aligned), the
+    float32/bf16 reads, and the walk split in runs whose partials a
+    second kernel merges (runs left empty among them): the valid rows
+    within the tolerance of the plain version, the others 0, with idle
+    slots (``q_lens`` 0) among them."""
+    B, C, H, kvh, hd, P, NP, M, window = shape
+    gen = torch.Generator().manual_seed(sum(shape[:8]) + offset)
+    q_dt = torch.bfloat16 if dtypes in ("bf16", "bf16-q") else torch.float32
+    kv_dt = (torch.bfloat16 if dtypes in ("bf16", "bf16-pages")
+             else torch.float32)
+    q = torch.randn(B, C, H, hd, generator=gen).to(q_dt)
+    n = NP * P * kvh * hd
+    k = torch.randn(n + offset, generator=gen).to(kv_dt)[offset:].view(
+        NP, P, kvh, hd)
+    v = torch.randn(n + offset, generator=gen).to(kv_dt)[offset:].view(
+        NP, P, kvh, hd)
+    table = torch.randint(0, NP, (B, M), generator=gen, dtype=torch.int32)
+    start = torch.randint(0, M * P - C + 1, (B,), generator=gen,
+                          dtype=torch.int32)
+    q_lens = torch.randint(0, C + 1, (B,), generator=gen, dtype=torch.int32)
+    out = torch.full((B, C, H, hd), float("nan"))
+    ws = torch.full((splits * B * C * H * (hd + 2),), float("nan"))
+    assert paged_host_build.paged_attention(
+        q.data_ptr(), int(q_dt == torch.bfloat16), k.data_ptr(),
+        v.data_ptr(), int(kv_dt == torch.bfloat16), table.data_ptr(),
+        start.data_ptr(), q_lens.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        B, C, H, kvh, hd, P, M, window or 0, splits, None) == 0
+    want = ref.paged_attention_batched_ref(q, k, v, table, start, q_lens,
+                                           window=window)
+    valid = torch.arange(C)[None, :] < q_lens[:, None]
+    np.testing.assert_allclose(out[valid].numpy(), want[valid].numpy(),
+                               **PAGED_TOL)
+    assert torch.equal(out[~valid], torch.zeros_like(out[~valid]))
+
+
+def test_paged_attention_splits_only_launches_of_few_blocks(
+        paged_host_build):
+    """A decode pass of 16 slots and 8 kv heads (128 blocks) splits each
+    walk; a chunked-prefill pass (8,192 blocks) and a short table do
+    not."""
+    splits = paged_host_build.paged_attention_splits
+    assert splits(16, 1, 32, 8, 16, 128) == 9
+    assert splits(16, 1, 32, 8, 16, 4) == 1
+    assert splits(16, 256, 32, 8, 16, 128) == 1
+    assert 1 < splits(2, 1, 4, 2, 16, 64) <= 32
