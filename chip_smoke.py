@@ -10,7 +10,10 @@ asynchronous server of ``python -m repro_torch.launch.async_train``
 (whose every commit runs the buffered-commit kernel), the hierarchical
 fleet, and the LM trainer of ``python -m repro_torch.launch.train`` on
 granite-3-2b at full width (the sharded engine, its sparse wire in the
-tracker and payload-blocks kernels).  Phases, each printed as one JSON
+tracker and payload-blocks kernels), and paged serving through
+``PagedEngine`` of granite-3-2b (the GQA paged-attention kernel) and of
+deepseek-v2-lite-16b (MLA + MoE; the absorbed-form paged MLA kernel),
+each at its full width and depth.  Phases, each printed as one JSON
 line:
 
 1. device   -- the card, as ``nvidia-smi`` and torch see it;
@@ -88,7 +91,23 @@ line:
                page a sequence against ``DecodeServer``, token for token;
 19. serve-cli -- ``python -m repro_torch.launch.serve --engine paged
                --no-smoke`` on the card;
-20. the card's ``nvidia-smi`` line, the ``kernels`` line, and the ``ok``
+20. paged-mla-kernel -- the paged MLA kernel
+               (``csrc/paged_mla_attention.cu``) against its plain version
+               at deepseek-v2-lite-16b's serving shapes (16 slots, 2,048
+               tokens of context in random pages of 16, 16 heads, r 512,
+               rope 64, bf16 pages): C = 1 and C = 256, each with and
+               without a 1,024 window; times beside the bound, the plain
+               version and a note of ``paged_gather`` +
+               ``scaled_dot_product_attention`` (one KV head);
+21. serve-mla -- ``PagedEngine`` on deepseek-v2-lite-16b at all 27
+               layers, bf16, with the serve phase's traffic and checks
+               (one MLA kernel launch per layer and pass), and the
+               device's busy share in one decode pass
+               (serve-mla-breakdown);
+22. serve-mla-trajectory, serve-mla-anchor -- phases 17 and 18 on the
+               deepseek smoke config;
+23. serve-cli -- the serve CLI again with ``--arch deepseek-v2-lite-16b``;
+24. the card's ``nvidia-smi`` line, the ``kernels`` line, and the ``ok``
    line, last.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -236,6 +255,14 @@ PAGED_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
 PAGED_KERNELS = {
     "paged_attention_batched": "src/repro/kernels/paged_attention.py:229",
     "paged_attention": "src/repro/kernels/paged_attention.py:284"}
+SERVE_ARCH = "granite-3-2b"
+# Serving deepseek-v2-lite-16b (MLA + MoE) at all 27 layers (bf16), with
+# the serve phase's traffic: every layer of every pass reads its latent
+# pages through the MLA kernel (#14).
+MLA_ARCH = "deepseek-v2-lite-16b"
+MLA_SOURCE = "src/repro_torch/kernels/csrc/paged_mla_attention.cu"
+MLA_KERNEL = "paged_mla_attention"
+MLA_REPLACES = "src/repro/kernels/paged_attention.py:354"
 SERVE = dict(batch=16, max_seq=4096, page_size=16, pages=4096, chunk=256)
 SERVE_REQUESTS, SERVE_NEW = 32, 64
 SERVE_PROMPT = (512, 2048)           # prompt tokens, drawn from the seed
@@ -319,7 +346,8 @@ def phase_device():
 def phase_build():
     """The CUDA sources built at once, one ``nvcc`` each."""
     libs = {SOURCE: kernels.LIBRARY, RANDK_SOURCE: randk.LIBRARY,
-            PAGED_SOURCE: paged_attention.LIBRARY}
+            PAGED_SOURCE: paged_attention.LIBRARY,
+            MLA_SOURCE: paged_attention.MLA_LIBRARY}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         built = dict(zip(libs, pool.map(build.build, libs.values())))
@@ -327,6 +355,7 @@ def phase_build():
     kernels.library()
     randk.library()
     paged_attention.library()
+    paged_attention.mla_library()
     for source, b in built.items():
         ptxas = [ln.strip() for ln in b.log.splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -1349,9 +1378,142 @@ def phase_paged_kernels(dev, name, flush):
     return rows
 
 
-def serve_arch(long_context=False):
-    """granite-3-2b as the reference config gives it: 40 layers, bf16."""
-    arch = rt_models.get_config("granite-3-2b")
+def mla_work(start, q_lens, window, H, r, rr):
+    """(latent bytes, float ops) this run's rows need: each slot's live
+    positions read once (bf16 c_kv and k_rope), and 2 H (r + rope + r)
+    operations for every (valid query, position it attends) pair."""
+    kv_bytes, flops = 0, 0
+    for s0, n in zip(start.tolist(), q_lens.tolist()):
+        lo = max(0, s0 - window + 1) if window else 0
+        kv_bytes += (s0 + n - lo) * (r + rr) * 2
+        for c in range(n):
+            pos = s0 + c
+            flops += 2 * H * (2 * r + rr) * (min(pos + 1, window) if window
+                                             else pos + 1)
+    return kv_bytes, flops
+
+
+def phase_paged_mla_kernels(dev, name, flush):
+    """The MLA kernel against its plain version at deepseek-v2-lite-16b's
+    serving shapes, as the model calls it (q_abs float32, q_rope and the
+    pages bf16): C = 256 (``q_lens`` in [1, 256] from the seed) and
+    C = 1, with and without a window.  Rows ``c >= q_lens`` must be 0;
+    the comparison covers the valid rows.  Returns the kernels line's
+    row (C = 256, no window, the chunked-prefill passes' launch)."""
+    import torch.nn.functional as F
+    mem_rate, f32_rate = card_rates(name)
+    arch = serve_arch(arch_id=MLA_ARCH)
+    a, H = arch.mla, arch.num_heads
+    r, rr = a.kv_lora_rank, a.qk_rope_head_dim
+    scale = 1.0 / (a.qk_nope_head_dim + rr) ** 0.5
+    B, P = SERVE["batch"], SERVE["page_size"]
+    M = PAGED_CTX // P
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    ckv = torch.randn(B * M, P, r, generator=gen, device=dev).to(
+        torch.bfloat16)
+    kr = torch.randn(B * M, P, rr, generator=gen, device=dev).to(
+        torch.bfloat16)
+    table = torch.randperm(B * M, generator=gen, device=dev).reshape(
+        B, M).to(torch.int32)
+    rows = {}
+    for C, window in ((256, None), (256, PAGED_WINDOW), (1, None),
+                      (1, PAGED_WINDOW)):
+        # q_abs at the scale of q_nope W_uk (unit-variance rows times
+        # weights of variance 1/r over 128 dims)
+        q_abs = torch.randn(B, C, H, r, generator=gen, device=dev) * 0.5
+        q_rope = torch.randn(B, C, H, rr, generator=gen, device=dev).to(
+            torch.bfloat16)
+        lo, hi = (PAGED_CTX // 2, PAGED_CTX - 1) if C == 1 else (
+            0, PAGED_CTX - C)
+        start = torch.randint(lo, hi + 1, (B,), generator=gen,
+                              device=dev).to(torch.int32)
+        q_lens = (torch.ones(B, dtype=torch.int32, device=dev) if C == 1
+                  else torch.minimum(torch.randint(1, C + 1, (B,),
+                                                   generator=gen, device=dev),
+                                     PAGED_CTX - start).to(torch.int32))
+        args = (q_abs, q_rope, ckv, kr, table, start, q_lens)
+
+        def kernel_fn():
+            return paged_attention.paged_mla_attention(
+                *args, scale=scale, window=window)
+
+        def plain_fn():
+            return ref.paged_mla_attention_ref(*args, scale=scale,
+                                               window=window)
+
+        def sdpa():
+            # one KV head of width r + rope against H query heads, values
+            # the latent rows: the absorbed read as MQA
+            kv = torch.cat([ckv, kr], dim=-1)
+            kg = rt_layers.paged_gather(kv, table)[:, None]   # (B,1,S,576)
+            vg = rt_layers.paged_gather(ckv, table)[:, None]
+            q = torch.cat([q_abs.to(torch.bfloat16), q_rope],
+                          dim=-1).transpose(1, 2)          # (B,H,C,576)
+            q_pos = start[:, None].long() + torch.arange(C, device=dev)
+            idx = torch.arange(kg.shape[2], device=dev)
+            mask = idx[None, None] <= q_pos[..., None]
+            if window:
+                mask &= idx[None, None] > q_pos[..., None] - window
+            return F.scaled_dot_product_attention(
+                q, kg, vg, attn_mask=mask[:, None], scale=scale,
+                enable_gqa=True)
+
+        try:
+            sdpa_ms, sdpa_note = time_ms(sdpa, flush), (
+                "paged_gather + scaled_dot_product_attention (bf16, one KV "
+                "head, enable_gqa, q/k 576 wide, v 512), timed beside it")
+        except RuntimeError as exc:
+            sdpa_ms, sdpa_note = None, f"SDPA refused the shapes: {exc}"
+        valid = (torch.arange(C, device=dev)[None, :]
+                 < q_lens[:, None].long())                    # (B, C)
+        kv_bytes, flops = mla_work(start, q_lens, window, H, r, rr)
+        nbytes = (kv_bytes + q_abs.numel() * 4 + q_rope.numel() * 2
+                  + q_abs.numel() * 4 + table.numel() * 4
+                  + 2 * start.numel() * 4)
+        bytes_ms = nbytes / mem_rate * 1e3
+        ops_ms = flops / f32_rate * 1e3
+        before = kernels.launches[MLA_KERNEL]
+        out = kernel_fn()
+        torch.cuda.synchronize()
+        check(kernels.launches[MLA_KERNEL] == before + 1,
+              f"{MLA_KERNEL} C={C} counted its launch")
+        plain = plain_fn()
+        check(out.shape == plain.shape == q_abs.shape,
+              f"{MLA_KERNEL} output shape")
+        check(bool((out[~valid] == 0).all()),
+              f"{MLA_KERNEL} C={C}: rows c >= q_lens written 0")
+        err = (out[valid] - plain[valid]).abs().max().item()
+        check(torch.allclose(out[valid], plain[valid], **PAGED_TOL),
+              f"{MLA_KERNEL} C={C} window={window}: max |kernel - plain| = "
+              f"{err} beyond {PAGED_TOL}")
+        del out, plain
+        fields = dict(
+            name=MLA_KERNEL, route="cuda", source=MLA_SOURCE,
+            replaces=MLA_REPLACES, max_abs_err=err,
+            ms=time_ms(kernel_fn, flush), plain_ms=time_ms(plain_fn, flush),
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            library_ms=None, bytes=nbytes, flops=flops)
+        emit("paged-mla-kernel", **fields, C=C, window=window,
+             shape=[B, C, H, r], rope=rr, context=PAGED_CTX, page_size=P,
+             valid_rows=int(valid.sum()), tolerance=PAGED_TOL,
+             splits=paged_attention.mla_library().paged_mla_attention_splits(
+                 B, C, H, P, M),
+             library="none: the page gather and the attention are two "
+                     "PyTorch calls",
+             sdpa_note_ms=sdpa_ms, sdpa_note=sdpa_note)
+        if C == 256 and window is None:
+            rows[MLA_KERNEL] = fields
+        del args, q_abs, q_rope
+    del ckv, kr, table
+    torch.cuda.empty_cache()
+    return rows
+
+
+def serve_arch(long_context=False, arch_id=SERVE_ARCH):
+    """The served config as the reference gives it: granite-3-2b at 40
+    layers, deepseek-v2-lite-16b at 27, bf16."""
+    arch = rt_models.get_config(arch_id)
     return arch.for_long_context() if long_context else arch
 
 
@@ -1363,10 +1525,21 @@ def serve_requests(vocab):
         max_new_tokens=SERVE_NEW) for i in range(SERVE_REQUESTS)]
 
 
-def phase_serve(dev, long_context=False):
+def serve_launches(arch, m):
+    """The kernel launches a serve run must count: one per layer and
+    pass, the GQA kernel's C = 1 (decode) passes as #13, or one MLA
+    launch per layer and pass."""
+    L = arch.num_layers
+    if arch.mla is not None:
+        return {MLA_KERNEL: L * (m["decode_steps"] + m["mixed_passes"])}
+    return {"paged_attention": L * m["decode_steps"],
+            "paged_attention_batched": L * m["mixed_passes"]}
+
+
+def phase_serve(dev, long_context=False, arch_id=SERVE_ARCH):
     """PagedEngine at full width; returns (launches by kernel, the
     generated tokens, the engine)."""
-    arch = serve_arch(long_context)
+    arch = serve_arch(long_context, arch_id)
     estimate = serve_cli.estimate_serve_bytes(
         arch, engine="paged", batch=SERVE["batch"], max_seq=SERVE["max_seq"],
         page_size=SERVE["page_size"], pages=SERVE["pages"],
@@ -1413,7 +1586,8 @@ def phase_serve(dev, long_context=False):
     peak = torch.cuda.max_memory_allocated() - resident
     m = engine.metrics()
     passes = m["decode_steps"] + m["mixed_passes"]
-    tag = "serve-long-context" if long_context else "serve"
+    tag = ("serve-long-context" if long_context else
+           "serve-mla" if arch.mla is not None else "serve")
     check(all(len(r.generated) == SERVE_NEW for r in done),
           f"{tag}: every request finished with {SERVE_NEW} tokens")
     check(int(nonfinite) == 0, f"{tag}: finite logits")
@@ -1423,8 +1597,7 @@ def phase_serve(dev, long_context=False):
     check(engine.pool.in_use == 0,
           f"{tag}: the pages in use were those the prefix cache retained")
     L = arch.num_layers
-    check(counts == {"paged_attention": L * m["decode_steps"],
-                     "paged_attention_batched": L * m["mixed_passes"]},
+    check(counts == serve_launches(arch, m),
           f"{tag}: one kernel launch per layer and pass ({L} x "
           f"{m['decode_steps']} decode, {L} x {m['mixed_passes']} mixed): "
           f"{counts}")
@@ -1437,6 +1610,8 @@ def phase_serve(dev, long_context=False):
          heads=arch.num_heads, kv_heads=arch.num_kv_heads, d_ff=arch.d_ff,
          vocab=arch.vocab_size, dtype=arch.dtype,
          window=arch.attention_window,
+         mla=None if arch.mla is None else vars(arch.mla),
+         moe=None if arch.moe is None else vars(arch.moe),
          params=rt_models.count_params(engine.params), **SERVE,
          requests=SERVE_REQUESTS, new_tokens=SERVE_NEW,
          prompt_tokens=sum(len(r.prompt) for r in done),
@@ -1462,7 +1637,7 @@ def phase_serve(dev, long_context=False):
     return counts, [list(r.generated) for r in done], engine
 
 
-def phase_serve_breakdown(dev, engine):
+def phase_serve_breakdown(dev, engine, tag="serve-breakdown"):
     """One pure-decode pass of the full-width model under torch.profiler:
     16 slots at 2,047 tokens of context in the engine's pool, C = 1,
     with the greedy read-back; wall time, the device's busy share and
@@ -1505,14 +1680,14 @@ def phase_serve_breakdown(dev, engine):
         if t > 0 and avg.device_type == torch.autograd.DeviceType.CUDA:
             top.append([avg.key[:60], t / 1e3, avg.count])
     top.sort(key=lambda r: -r[1])
-    emit("serve-breakdown", slots=B, context=PAGED_CTX,
+    emit(tag, arch=model.cfg.name, slots=B, context=PAGED_CTX,
          layers=model.cfg.num_layers, pass_wall_ms=wall_ms,
          pass_device_ms=device_ms, device_busy_share=device_ms / wall_ms,
          kernel_launches=launches, top_kernels=top[:8])
 
 
-def _smoke_serve_model(device):
-    arch = rt_models.get_smoke_config("granite-3-2b")
+def _smoke_serve_model(device, arch_id=SERVE_ARCH):
+    arch = rt_models.get_smoke_config(arch_id)
     return rt_models.Model.create(
         arch, torch.Generator(device=device).manual_seed(SEED), device)
 
@@ -1524,12 +1699,23 @@ def _smoke_requests(vocab, n, seed, lo, hi, new):
         for i in range(n)]
 
 
-def phase_serve_trajectory(dev):
+def smoke_launches_seen(arch_id):
+    """Whether the card's smoke-size passes went through the arch's
+    paged kernel(s)."""
+    if rt_models.get_config(arch_id).mla is not None:
+        return kernels.launches[MLA_KERNEL] > 0
+    return (kernels.launches["paged_attention"] > 0
+            and kernels.launches["paged_attention_batched"] > 0)
+
+
+def phase_serve_trajectory(dev, arch_id=SERVE_ARCH):
     """PagedEngine at smoke size (float32) on the card and on the CPU,
     from the same weights and requests, every logit traced: equal tokens
     and logits allclose.  Pages of 8, chunks of 16, a pool small enough
     to preempt (also mid-prefill)."""
-    cpu_model = _smoke_serve_model("cpu")
+    tag = ("serve-mla-trajectory" if arch_id == MLA_ARCH
+           else "serve-trajectory")
+    cpu_model = _smoke_serve_model("cpu", arch_id)
     card_model = rt_models.Model(
         cpu_model.cfg, {k: v.to(dev) for k, v in cpu_model.params().items()})
     vocab = cpu_model.cfg.vocab_size
@@ -1543,9 +1729,8 @@ def phase_serve_trajectory(dev):
         runs[where] = (eng, eng.run(_smoke_requests(vocab, 7, SEED, 5, 40,
                                                     12)))
     torch.cuda.synchronize()
-    check(kernels.launches["paged_attention"] > 0
-          and kernels.launches["paged_attention_batched"] > 0,
-          f"serve-trajectory: the card's passes went through the kernel: "
+    check(smoke_launches_seen(arch_id),
+          f"{tag}: the card's passes went through the kernel: "
           f"{kernels.launches}")
     (e_c, out_c), (e_g, out_g) = runs["cpu"], runs["card"]
     err = 0.0
@@ -1557,30 +1742,31 @@ def phase_serve_trajectory(dev):
             top2 = torch.topk(torch.from_numpy(
                 e_c.logit_trace[rc.uid][i]), 2).values
             raise RuntimeError(
-                f"chip_smoke: serve-trajectory: request {rc.uid} token {i} "
+                f"chip_smoke: {tag}: request {rc.uid} token {i} "
                 f"differs (CPU {rc.generated[i]}, card {rg.generated[i]}); "
                 f"the CPU's top-2 margin {float(top2[0] - top2[1])}")
         for a, b in zip(e_g.logit_trace[rg.uid], e_c.logit_trace[rc.uid]):
             a, b = torch.from_numpy(a), torch.from_numpy(b)
             err = max(err, (a - b).abs().max().item())
             check(torch.allclose(a, b, **SERVE_TRAJ_TOL),
-                  f"serve-trajectory: request {rc.uid} logits within "
+                  f"{tag}: request {rc.uid} logits within "
                   f"{SERVE_TRAJ_TOL}: max abs err {(a - b).abs().max()}")
     check(e_c.metrics()["pool"] == e_g.metrics()["pool"]
           and e_g.pool.metrics.preemptions > 0,
-          "serve-trajectory: equal pool accounting, with preemptions")
-    emit("serve-trajectory", requests=len(out_c), **kw,
+          f"{tag}: equal pool accounting, with preemptions")
+    emit(tag, arch=arch_id, requests=len(out_c), **kw,
          preemptions=e_g.pool.metrics.preemptions,
          max_abs_logit_err=err, tolerance=SERVE_TRAJ_TOL,
          launches={k: v for k, v in kernels.launches.items() if v})
 
 
-def phase_serve_anchor(dev):
+def phase_serve_anchor(dev, arch_id=SERVE_ARCH):
     """The reference's parity anchor on the card at smoke size:
     PagedEngine with one page a sequence (page size = max_seq, pages =
     slots) against DecodeServer, token for token, more requests than
     slots."""
-    model = _smoke_serve_model(dev)
+    tag = "serve-mla-anchor" if arch_id == MLA_ARCH else "serve-anchor"
+    model = _smoke_serve_model(dev, arch_id)
     vocab = model.cfg.vocab_size
     reqs = lambda: _smoke_requests(vocab, 5, SEED + 1, 2, 8, 6)  # noqa: E731
     dense = serving.DecodeServer(model, None, batch_size=2, max_seq_len=32,
@@ -1590,29 +1776,30 @@ def phase_serve_anchor(dev):
                                 page_size=32, num_pages=2, device=dev)
     out = paged.run(reqs())
     torch.cuda.synchronize()
-    check(kernels.launches["paged_attention"] > 0,
-          f"serve-anchor: the paged engine went through the kernel: "
-          f"{kernels.launches}")
+    seen = (kernels.launches[MLA_KERNEL] if arch_id == MLA_ARCH
+            else kernels.launches["paged_attention"])
+    check(seen > 0, f"{tag}: the paged engine went through the kernel: "
+                    f"{kernels.launches}")
     same = [a.generated == b.generated for a, b in zip(dense, out)]
-    check(all(same), f"serve-anchor: PagedEngine equals DecodeServer token "
+    check(all(same), f"{tag}: PagedEngine equals DecodeServer token "
                      f"for token: {same}")
-    emit("serve-anchor", requests=len(out), slots=2, max_seq=32,
+    emit(tag, arch=arch_id, requests=len(out), slots=2, max_seq=32,
          page_size=32, num_pages=2, equal=same,
          prefill_forwards=paged.prefill_forwards)
 
 
-def phase_serve_cli():
+def phase_serve_cli(arch_id=SERVE_ARCH):
     """The serve CLI at full width on the card, at its default sizes."""
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "granite-3-2b", "--engine", "paged", "--no-smoke"],
+         arch_id, "--engine", "paged", "--no-smoke"],
         capture_output=True, text=True, timeout=300, cwd=ROOT,
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     rows = [ln for ln in proc.stdout.splitlines() if ln.strip()]
     check(proc.returncode == 0 and rows and rows[0].startswith("served 8 "),
           f"serve CLI: rc {proc.returncode}\n{proc.stdout}\n{proc.stderr}")
-    emit("serve-cli", returncode=proc.returncode, rows=rows,
+    emit("serve-cli", arch=arch_id, returncode=proc.returncode, rows=rows,
          seconds=time.perf_counter() - t0)
 
 
@@ -1679,6 +1866,18 @@ def main():
     phase_serve_trajectory(dev)
     phase_serve_anchor(dev)
     phase_serve_cli()
+    flush = torch.zeros(128 << 20 >> 2, device=dev)
+    rows.update(phase_paged_mla_kernels(dev, name, flush))
+    del flush
+    counts, _, engine = phase_serve(dev, arch_id=MLA_ARCH)
+    phase_serve_breakdown(dev, engine, tag="serve-mla-breakdown")
+    del engine
+    launches[MLA_KERNEL] = counts.get(MLA_KERNEL, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_serve_trajectory(dev, MLA_ARCH)
+    phase_serve_anchor(dev, MLA_ARCH)
+    phase_serve_cli(MLA_ARCH)
     for kname, count in launches.items():
         check(count > 0, f"the main path launched {kname}")
         rows[kname]["launches"] = count

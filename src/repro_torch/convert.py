@@ -134,25 +134,29 @@ def train_state_from_jax(ref_state, device="cuda"):
 
 
 def _layer_caches(ref_caches, device):
-    """A reference decode-cache tree as the port's tuple of one
-    ``KVCache`` a layer: the reference stacks the layers ``(L, ...)``
-    under its scan, or keeps a tuple when it unrolls."""
+    """A reference decode-cache tree as the port's tuple of one attention
+    cache a layer (``KVCache`` or ``MLACache``, the same fields): the
+    reference stacks the layers ``(L, ...)`` under its scan, or keeps a
+    tuple when it unrolls."""
     from repro_torch.models.layers import KVCache
-    if type(ref_caches).__name__ == "KVCache":         # stacked (L, ...)
-        k, v = np.array(ref_caches.k), np.array(ref_caches.v)
-        return tuple(KVCache(k=tensor(k[i], device), v=tensor(v[i], device))
-                     for i in range(k.shape[0]))
+    from repro_torch.models.mla import MLACache
+    ported = {"KVCache": KVCache, "MLACache": MLACache}
+    kind = type(ref_caches).__name__
+    if kind in ported:                                  # stacked (L, ...)
+        fields = [np.array(x) for x in ref_caches]
+        return tuple(ported[kind](*(tensor(x[i], device) for x in fields))
+                     for i in range(fields[0].shape[0]))
     for c in ref_caches:
-        if type(c).__name__ != "KVCache":
+        if type(c).__name__ not in ported:
             raise TypeError(f"no port of decode cache {type(c).__name__} "
                             "(ROADMAP queue 1, slice 3 item 7)")
-    return tuple(KVCache(k=tensor(c.k, device), v=tensor(c.v, device))
+    return tuple(ported[type(c).__name__](*(tensor(x, device) for x in c))
                  for c in ref_caches)
 
 
 def decode_state_from_jax(ref_state, device="cuda"):
     """A copy of a reference dense ``DecodeState`` (``repro.models.model``),
-    its ring caches one ``KVCache`` a layer."""
+    its ring caches one ``KVCache`` or ``MLACache`` a layer."""
     from repro_torch.models.model import DecodeState
     return DecodeState(caches=_layer_caches(ref_state.caches, device),
                        position=tensor(ref_state.position, device,
@@ -161,15 +165,14 @@ def decode_state_from_jax(ref_state, device="cuda"):
 
 def paged_state_from_jax(ref_state, device="cuda"):
     """A copy of a reference ``PagedDecodeState``: its pool pages one
-    ``KVCache`` a layer, with the port's scratch page (zeros) appended
-    after the reference's ``num_pages``."""
-    from repro_torch.models.layers import KVCache
+    ``KVCache`` or ``MLACache`` a layer, with the port's scratch page
+    (zeros) appended after the reference's ``num_pages``."""
     from repro_torch.models.model import PagedDecodeState
 
     def with_scratch(x):
         return torch.cat([x, torch.zeros_like(x[:1])])
 
-    caches = tuple(KVCache(k=with_scratch(c.k), v=with_scratch(c.v))
+    caches = tuple(type(c)(*(with_scratch(x) for x in c))
                    for c in _layer_caches(ref_state.caches, device))
     return PagedDecodeState(
         caches=caches,

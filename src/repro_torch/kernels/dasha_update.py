@@ -38,9 +38,10 @@ launches: Dict[str, int] = {"dasha_update_batched": 0,
                             "block_gather": 0,
                             "block_scatter": 0,
                             "paged_attention_batched": 0,
-                            "paged_attention": 0}
+                            "paged_attention": 0,
+                            "paged_mla_attention": 0}
 """Kernel launches since the last :func:`reset_launches`, by kernel: this
-module's, :mod:`.randk`'s and :mod:`.paged_attention`'s (whose one
+module's, :mod:`.randk`'s and :mod:`.paged_attention`'s (whose GQA
 kernel counts its decode view apart)."""
 
 

@@ -1,7 +1,7 @@
 """The op layer the engines call for Algorithm 1 lines 9-11 (dense, and
 split for the sparse wire), the async server for its commit, the
 sharded engine for BlockRandK's block gather and scatter, and the
-serving model for its paged attention.
+serving models for their paged attention (GQA and MLA).
 
 The port of ``repro/kernels/ops.py:63-186``; the flat ops there
 (``dasha_update_op``, the sharded engine's per-leaf forms) are the
@@ -210,3 +210,25 @@ def paged_attention_op(q: Tensor, k_pages: Tensor, v_pages: Tensor,
             lens.to(torch.int32), window=window)
     return ref.paged_attention_ref(q, k_pages, v_pages, page_table, lens,
                                    window=window)
+
+
+@_scoped("paged_mla_attention")
+def paged_mla_attention_op(q_abs: Tensor, q_rope: Tensor, ckv_pages: Tensor,
+                           kr_pages: Tensor, page_table: Tensor,
+                           start: Tensor, q_lens: Tensor, *, scale: float,
+                           window: Optional[int] = None) -> Tensor:
+    """The absorbed-form paged MLA read of a serve pass: q_abs (B, C, H, r)
+    and q_rope (B, C, H, rope) against the latent pages (NP, P, r) and
+    (NP, P, rope) through the (B, M) table, query ``c`` of slot ``b`` at
+    ``start[b] + c``, scores ``(q_abs . c_kv + q_rope . k_rope) * scale``;
+    the latent output (B, C, H, r) float32, to which the caller applies
+    ``W_uv``.  Rows ``c >= q_lens`` are garbage by contract (the kernel
+    writes 0 there, the plain version attends as the oracle does)."""
+    if _on_cuda(q_abs):
+        return paged_attention.paged_mla_attention(
+            q_abs.float().contiguous(), q_rope.contiguous(), ckv_pages,
+            kr_pages, page_table.to(torch.int32), start.to(torch.int32),
+            q_lens.to(torch.int32), scale=scale, window=window)
+    return ref.paged_mla_attention_ref(q_abs, q_rope, ckv_pages, kr_pages,
+                                       page_table, start, q_lens,
+                                       scale=scale, window=window)

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the port's CUDA kernels: the three DASHA-PP
 updates, the sparse wire's tracker and payload passes, the async
 server's buffered commit, BlockRandK's block gather and scatter, and the
-paged GQA attention of serving.
+paged GQA and MLA attentions of serving.
 
 Each follows its Pallas body's arithmetic operation for operation
 (``repro/kernels/dasha_update.py:159-163``, ``:209-215``, ``:260-262``,
@@ -13,10 +13,11 @@ buffered commit sums its ``K`` rows one after another in order, as the
 CUDA kernel does; ``w @ m``, whose order BLAS leaves open, would not
 round the same way.  The CUDA kernels in ``csrc/dasha_update.cu``
 round every operation the same way (built with ``--fmad=false``), so on
-the card the two agree exactly.  The paged attention is the exception:
-its plain version is the reference's oracle (a full softmax), and the
-kernel in ``csrc/paged_attention.cu`` walks the pages with an online
-softmax, summing in another order, so the two agree within a tolerance.
+the card the two agree exactly.  The paged attentions are the exception:
+their plain versions are the reference's oracles (a full softmax), and
+the kernels in ``csrc/paged_attention.cu`` and
+``csrc/paged_mla_attention.cu`` walk the pages with an online softmax,
+summing in another order, so the two agree within a tolerance.
 
 The main path calls these only for CPU tensors (:mod:`.ops`); the tests
 and ``chip_smoke.py`` also call them on CUDA tensors to hold the kernels
@@ -227,3 +228,38 @@ def paged_attention_ref(q: Tensor, k_pages: Tensor, v_pages: Tensor,
         torch.clamp(lens - 1, min=0),
         torch.ones(B, dtype=torch.int32, device=q.device), window=window)
     return out[:, 0]
+
+
+def paged_mla_attention_ref(q_abs: Tensor, q_rope: Tensor, ckv_pages: Tensor,
+                            kr_pages: Tensor, page_table: Tensor,
+                            start: Tensor, q_lens: Tensor, *, scale: float,
+                            window: Optional[int] = None) -> Tensor:
+    """Absorbed-form MLA latent attention over a page pool
+    (``repro/kernels/paged_attention.py:146-172``): q_abs (B, C, H, r),
+    the nope query with ``W_uk`` folded in; q_rope (B, C, H, rope_hd);
+    ``ckv_pages`` (NP, P, r) and ``kr_pages`` (NP, P, rope_hd), cast to
+    float32 whole as the oracle casts them; query ``c`` of slot ``b``
+    sits at ``start[b] + c`` (rows ``c >= q_lens`` are garbage by
+    contract and attend like the others here, as in the oracle).  Scores
+    are ``(q_abs . c_kv + q_rope . k_rope) * scale``, masked ones -1e30.
+    Returns the latent output (B, C, H, r) float32; the caller applies
+    ``W_uv``."""
+    del q_lens
+    B, C, H, r = q_abs.shape
+    P = ckv_pages.shape[1]
+    M = page_table.shape[1]
+    table = page_table.long()
+    ckv = ckv_pages[table].reshape(B, M * P, r).float()
+    kr = kr_pages[table].reshape(B, M * P, -1).float()
+    idx = torch.arange(M * P, device=q_abs.device)[None, None, :]
+    q_pos = (start.long()[:, None]
+             + torch.arange(C, device=q_abs.device)[None, :])     # (B, C)
+    valid = idx < (q_pos + 1)[:, :, None]
+    if window is not None:
+        valid &= idx > (q_pos[:, :, None] - window)
+    s = (torch.einsum("bchr,bsr->bhcs", q_abs.float(), ckv)
+         + torch.einsum("bchx,bsx->bhcs", q_rope.float(), kr))
+    s = s * scale
+    s = torch.where(valid[:, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhcs,bsr->bchr", p, ckv)

@@ -1,6 +1,7 @@
 """Serving entry point of the port:
 
-    python -m repro_torch.launch.serve --arch granite-3-2b \\
+    python -m repro_torch.launch.serve \\
+        --arch {granite-3-2b,deepseek-v2-lite-16b} \\
         [--engine {dense,paged}] [--smoke/--no-smoke] [--batch 4] \\
         [--max-seq 128] [--requests 8] [--new-tokens 16] \\
         [--page-size 16] [--pages N] [--no-kernel] \\
@@ -79,17 +80,20 @@ def estimate_serve_bytes(arch, *, engine: str, batch: int, max_seq: int,
     """Device bytes a serving run of ``arch`` needs at most, counted from
     the shapes:
 
-    * the weights;
+    * the weights (an MoE router in float32);
     * the caches: the dense server's ``(B, S)`` ring rows, or the paged
       engine's pool (``pages`` pages, the dense-equivalent number when 0,
-      plus the scratch page), K and V in every layer;
+      plus the scratch page), K and V in every layer, or MLA's latent
+      and rope key (``L (r + rope)`` values a token);
     * one pass: its ``B x C`` token rows (``C`` the prefill chunk, 16 by
       default; a bulk prefill runs one prompt of up to ``max_seq``)
       through one layer's activations (norms, q/k/v and their float32
       RoPE, the attention output in float32, the MLP's three ``d_ff``
       wide tensors), the attention's scores and probabilities where no
       kernel reads the pages (with the gathered K and V of the paged
-      read), and the head's logits of the slots' last tokens.
+      read), and the head's logits of the slots' last tokens;
+    * with MLA and MoE (:func:`_mla_moe_pass_bytes`): MLA's float32
+      ``q_abs`` and latent output, and the MoE dispatch's buffers.
     """
     from repro_torch.models import param_shapes
 
@@ -97,7 +101,13 @@ def estimate_serve_bytes(arch, *, engine: str, batch: int, max_seq: int,
     L, D, F = arch.num_layers, arch.d_model, arch.d_ff
     H, kv, hd = arch.num_heads, arch.num_kv_heads, arch.hd
     weights = sum(math.prod(v) for v in param_shapes(arch).values()) * s
-    per_token_kv = L * 2 * kv * hd * s
+    if arch.moe is not None:
+        weights += L * D * arch.moe.num_experts * (4 - s)   # the router
+    if arch.mla is not None:
+        per_token_kv = L * (arch.mla.kv_lora_rank
+                            + arch.mla.qk_rope_head_dim) * s
+    else:
+        per_token_kv = L * 2 * kv * hd * s
     if engine == "dense":
         ctx = min(max_seq, arch.attention_window or max_seq)
         caches = batch * ctx * per_token_kv
@@ -109,13 +119,57 @@ def estimate_serve_bytes(arch, *, engine: str, batch: int, max_seq: int,
         prompt = max_seq if chunk == 0 else 1
         ctx = -(-max_seq // page_size) * page_size
     rows = max(batch * C, prompt)
-    layer = rows * ((6 * D + 3 * F) * s + (H + 2 * kv) * hd * (s + 12)
-                    + H * hd * 4)
-    if engine == "dense" or not use_kernel:
-        # scores and probabilities in float32; the gathered pages
-        layer += 2 * batch * H * C * ctx * 4 + 2 * batch * ctx * kv * hd * s
+    if arch.mla is not None:
+        layer = _mla_moe_pass_bytes(arch, rows, batch, C, prompt, ctx,
+                                    gather=engine == "dense"
+                                    or not use_kernel)
+    else:
+        layer = rows * ((6 * D + 3 * F) * s + (H + 2 * kv) * hd * (s + 12)
+                        + H * hd * 4)
+        if engine == "dense" or not use_kernel:
+            # scores and probabilities in float32; the gathered pages
+            layer += (2 * batch * H * C * ctx * 4
+                      + 2 * batch * ctx * kv * hd * s)
     logits = batch * arch.padded_vocab * (s + 4)
     return int(weights + caches + layer + logits)
+
+
+def _mla_moe_pass_bytes(arch, rows: int, batch: int, C: int, prompt: int,
+                        ctx: int, gather: bool) -> int:
+    """One MLA + MoE layer's activations for ``rows`` token rows: the
+    norms and residuals; q, its rope part in float32, the latent and the
+    rope key; the float32 ``q_abs`` and latent output of the absorbed
+    read (``rows H r 4`` bytes each), the float32 nope query and value
+    products and the output projection; where the pages are gathered
+    (``gather``), the float32 scores and probabilities and the gathered
+    latents with their K and V up-projections; a bulk prefill's score
+    blocks; and the MoE dispatch: the float32 router logits and
+    probabilities, the sort's index arrays, the ``(E C_cap, D)`` buffer
+    and expert output (with its zero row), the experts' ``(E, C_cap, F)``
+    activations, the gathered and unsorted ``(N K, D)`` outputs and the
+    shared experts' activations."""
+    from repro_torch.models.moe import _capacity
+
+    s = _dtype_bytes(arch.dtype)
+    D, H, a, m = arch.d_model, arch.num_heads, arch.mla, arch.moe
+    r, nope, rope, vd = (a.kv_lora_rank, a.qk_nope_head_dim,
+                         a.qk_rope_head_dim, a.v_head_dim)
+    attn = rows * (6 * D * s + H * (nope + rope) * s + H * rope * (s + 12)
+                   + (r + rope) * (s + 12) + 2 * H * r * 4 + H * nope * 4
+                   + 2 * H * vd * 4 + H * vd * s)
+    if gather:
+        attn += (2 * batch * H * C * ctx * 4
+                 + batch * ctx * ((r + rope) * s + H * (nope + vd) * s))
+    if prompt > 1:
+        blk = min(prompt, 1024)
+        attn += 2 * H * blk * blk * 4
+    E, K = m.num_experts, m.experts_per_token
+    ec = E * _capacity(rows, arch)
+    Fs = m.d_expert * m.num_shared_experts
+    moe = (rows * E * 4 * 2 + rows * K * 8 * 8 + 3 * ec * D * s
+           + 3 * ec * m.d_expert * s + 3 * rows * K * D * s
+           + 3 * rows * Fs * s)
+    return attn + moe
 
 
 def check_fits(nbytes: int, device) -> None:

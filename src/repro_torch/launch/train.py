@@ -172,8 +172,15 @@ def check_fits(nbytes: int, device) -> None:
 
 
 def run_shape(args: argparse.Namespace):
-    """``(arch, seq_len, global_batch)`` of the flags."""
+    """``(arch, seq_len, global_batch)`` of the flags; refuses an
+    architecture the trainer does not take, before anything is
+    allocated."""
     from repro_torch.models import INPUT_SHAPES, get_config, get_smoke_config
+    if get_config(args.arch).arch_type != "dense":
+        raise NotImplementedError(
+            f"{args.arch}: the trainer takes the dense decoder only; the "
+            "MoE and MLA trainer (g_i and h_i for every node at 16 B "
+            "parameters) waits for ROADMAP queue 1, item 15")
     if args.smoke:
         arch = get_smoke_config(args.arch).with_overrides(dtype="float32")
         seq, gbatch = 64, 8
@@ -209,8 +216,8 @@ def build_trainer(args: argparse.Namespace):
     from repro_torch.training.optim import adamw_server, paper_server
     from repro_torch.training.trainer import Trainer, TrainerConfig
 
-    dev = resolve_device(args.device)
     arch, seq, gbatch = run_shape(args)
+    dev = resolve_device(args.device)
     check_fits(estimate_for(args), dev)
     omega = 1.0 / args.ratio - 1.0
     dcfg = ShardedDashaConfig(

@@ -385,35 +385,27 @@ def decode_attention_block(p: dict, x: Tensor, positions: Tensor, cfg,
     """
     B, T, D = x.shape
     hd = cfg.hd
-    q, k, v = _project(p, x, positions, cfg)
+    q, k, v = _project(p, x, positions, cfg, angles)
     window = cfg.attention_window
     if paged_table is not None:
         NP, P = cache.k.shape[0] - 1, cache.k.shape[1]   # NP: the scratch
-        M = paged_table.shape[1]
-        start = cache_pos.long()
-        if q_lens is None:
-            qlens = (torch.ones(B, dtype=torch.long, device=x.device)
-                     if update is None else update.long())
-        else:
-            qlens = q_lens.long()
-        steps = torch.arange(T, device=x.device)
-        pos_mat = start[:, None] + steps[None]                 # (B, T)
-        pid = torch.gather(paged_table.long(), 1,
-                           torch.clamp(pos_mat // P, max=M - 1))
-        pid = torch.where(steps[None] < qlens[:, None], pid, NP)
-        slot = pos_mat % P
-        cache.k[pid, slot] = k.to(cache.k.dtype)
-        cache.v[pid, slot] = v.to(cache.v.dtype)
+        if plan is None:
+            qlens = (q_lens if q_lens is not None
+                     else torch.ones(B, dtype=torch.int32, device=x.device)
+                     if update is None else update.to(torch.int32))
+            plan = paged_plan(paged_table, cache_pos, qlens, T, P, NP)
+        cache.k[plan.pid, plan.slot] = k.to(cache.k.dtype)
+        cache.v[plan.pid, plan.slot] = v.to(cache.v.dtype)
         if paged_kernel:
             out = paged_attention_batched_op(
-                q, cache.k, cache.v, paged_table, start, qlens,
+                q, cache.k, cache.v, plan.table, plan.start, plan.q_lens,
                 window=window).to(v.dtype)
         else:
             kg = paged_gather(cache.k, paged_table)         # (B, M*P, ...)
             vg = paged_gather(cache.v, paged_table)
             k_pos = torch.arange(kg.shape[1], device=x.device)[None].expand(
                 B, kg.shape[1])
-            mask = decode_attention_mask(pos_mat, k_pos, causal, window)
+            mask = decode_attention_mask(plan.pos, k_pos, causal, window)
             out = gqa_attention(q, kg, vg, mask)
     elif cache_pos.dim() == 0:
         S = cache.k.shape[1]

@@ -1,6 +1,7 @@
 """Architecture registry of the port (``repro/models/registry.py``):
-config lookup and the input-shape registry.  Only granite-3-2b is
-ported; the others raise and name the ROADMAP item that brings them."""
+config lookup and the input-shape registry.  granite-3-2b (dense) and
+deepseek-v2-lite-16b (MLA + MoE) are ported; the others raise and name
+the ROADMAP item that brings them."""
 from __future__ import annotations
 
 import dataclasses
@@ -21,7 +22,7 @@ ARCH_IDS = (
     "llama3-405b",
     "deepseek-v2-lite-16b",
 )
-PORTED = ("granite-3-2b",)
+PORTED = ("granite-3-2b", "deepseek-v2-lite-16b")
 
 
 @dataclasses.dataclass(frozen=True)

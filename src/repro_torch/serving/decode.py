@@ -82,8 +82,8 @@ class DecodeServer:
         """Zero one slot's cache rows (their initial value) and restart
         its ring position at 0."""
         for c in self.state.caches:
-            c.k[slot] = 0
-            c.v[slot] = 0
+            for rows in c:
+                rows[slot] = 0
         self.state.position[slot] = 0
 
     def _tokens(self) -> torch.Tensor:

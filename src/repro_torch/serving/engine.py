@@ -48,7 +48,6 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.layers import KVCache
 from repro_torch.models.model import Model, PagedDecodeState, map_cache_tree
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import monitors as obs_monitors
@@ -215,8 +214,7 @@ class PagedEngine:
         ``num_pages`` pages (the scratch page is not counted)."""
         n = self.num_pages
         return attention_cache_bytes(map_cache_tree(
-            self._caches, on_attention=lambda c: KVCache(k=c.k[:n],
-                                                         v=c.v[:n]),
+            self._caches, on_attention=lambda c: type(c)(*(x[:n] for x in c)),
             on_leaf=lambda c: c))
 
     def cache_page_bytes(self) -> int:

@@ -87,7 +87,8 @@ COPIES = {"core/wire.py": (), "core/theory.py": (), "fl/events.py": (),
           "fl/staleness.py": (), "fl/latency.py": (),
           "fl/client_store.py": (), "obs/trace.py": ("kernel_scope",),
           "obs/metrics.py": (), "obs/monitors.py": (),
-          "training/metrics.py": (), "serving/pages.py": ()}
+          "training/metrics.py": (), "serving/pages.py": (),
+          "configs/deepseek_v2_lite_16b.py": ()}
 
 
 def _code_without_imports(path: Path, differing=()) -> str:
