@@ -72,6 +72,8 @@ line:
                and C = 256, with and without a 1,024 window, and its
                decode view; times beside the bound, the plain version and
                a note of ``paged_gather`` + ``scaled_dot_product_attention``;
+               the bound takes the function's operations at the bf16
+               tensor-core rate (``f32_ops_ms``: at the float32 rate);
 16. serve   -- ``PagedEngine`` on granite-3-2b at all 40 layers, bf16:
                16 slots, 4,096 tokens a sequence, pages of 16, the
                dense-equivalent pool of 4,096 pages, chunked prefill of
@@ -83,7 +85,10 @@ line:
                CLI's estimate; then the same run under
                ``for_long_context()`` (window 4,096), whose tokens must
                equal the first run's; the device's busy share in one
-               decode pass (``torch.profiler``);
+               decode pass (``torch.profiler``) and in one mixed pass (16
+               slots, each a 256-token chunk after 1,024 tokens of
+               context), with the paged kernel's share of the latter
+               (serve-mixed-breakdown);
 17. serve-trajectory -- ``PagedEngine`` at smoke size (float32) on the
                card and on the CPU from the same weights: equal tokens,
                logits allclose;
@@ -103,7 +108,8 @@ line:
                layers, bf16, with the serve phase's traffic and checks
                (one MLA kernel launch per layer and pass), and the
                device's busy share in one decode pass
-               (serve-mla-breakdown);
+               (serve-mla-breakdown) and one mixed pass
+               (serve-mla-mixed-breakdown);
 22. serve-mla-trajectory, serve-mla-anchor -- phases 17 and 18 on the
                deepseek smoke config;
 23. serve-cli -- the serve CLI again with ``--arch deepseek-v2-lite-16b``;
@@ -267,6 +273,8 @@ SERVE = dict(batch=16, max_seq=4096, page_size=16, pages=4096, chunk=256)
 SERVE_REQUESTS, SERVE_NEW = 32, 64
 SERVE_PROMPT = (512, 2048)           # prompt tokens, drawn from the seed
 PAGED_CTX = 2048                     # the kernel phase's context a slot
+MIXED_CTX = 1024                     # the mixed-pass profile's, before
+#                                      its chunk
 PAGED_WINDOW = 1024
 # kernel vs plain on the card: the same float32 products, summed in
 # another order (the online softmax's tiles against a full softmax) over
@@ -295,16 +303,17 @@ def all_finite(t):
 
 
 def card_rates(name):
-    """(memory bytes/s, float32 FLOP/s outside the tensor cores) of the
-    card, from NVIDIA's data sheets (dense rates, full power)."""
+    """(memory bytes/s, float32 FLOP/s outside the tensor cores, dense
+    bf16 tensor-core FLOP/s) of the card, from NVIDIA's data sheets
+    (dense rates, full power)."""
     if "H200" in name:
-        return 4.8e12, 67e12
+        return 4.8e12, 67e12, 989e12
     if "H100" in name:
         if "PCIe" in name:
-            return 2.0e12, 51e12
+            return 2.0e12, 51e12, 756e12
         if "NVL" in name:
-            return 3.9e12, 60e12
-        return 3.35e12, 67e12
+            return 3.9e12, 60e12, 835e12
+        return 3.35e12, 67e12, 989e12
     raise RuntimeError(f"no rated bandwidth known for {name!r}")
 
 
@@ -357,8 +366,10 @@ def phase_build():
     paged_attention.library()
     paged_attention.mla_library()
     for source, b in built.items():
+        # each kernel's (mangled) name, then its registers and spills
         ptxas = [ln.strip() for ln in b.log.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "entry function" in ln or "registers" in ln
+                 or "spill" in ln]
         emit("build", source=source, library=b.path.name,
              seconds=b.seconds, flags=" ".join(build.NVCC_FLAGS),
              ptxas=ptxas, wall_seconds_both=seconds)
@@ -366,7 +377,7 @@ def phase_build():
 
 def phase_kernels(dev, name, flush):
     """Each kernel against its plain version on the same inputs."""
-    mem_rate, f32_rate = card_rates(name)
+    mem_rate, f32_rate, _ = card_rates(name)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     gn, go, bn, bo, h, gi = (torch.randn(N, D, generator=gen, device=dev)
                              for _ in range(6))
@@ -428,7 +439,7 @@ def phase_commit_kernel(dev, name, flush):
     K = 10 (the async phase's buffer) and K = 100 (the reference's
     capacity-n buffer), the last fifth of the rows at weight 0 as the
     reference pads.  Returns the K = 10 row of the kernels line."""
-    mem_rate, f32_rate = card_rates(name)
+    mem_rate, f32_rate, _ = card_rates(name)
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     g = torch.randn(D, generator=gen, device=dev)
     inv_n = 1.0 / N
@@ -775,7 +786,7 @@ def phase_sparse_kernels(dev, name, flush):
     and at ``embed``, 4 nodes, against their plain versions; and the
     batched update in the per-leaf form the dense wires give it.
     Returns the ``w_gate`` rows of the kernels line."""
-    mem_rate, f32_rate = card_rates(name)
+    mem_rate, f32_rate, _ = card_rates(name)
     shapes = rt_models.param_shapes(full_width_arch())
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     hp = dict(b=0.5 / 1.5, a=0.5 / (2 * (1 / TRAIN_RATIO - 1) + 1), pa=0.5)
@@ -901,7 +912,7 @@ def phase_randk_kernels(dev, name, flush):
     distinct.  The scatter is timed beside ``index_add_``, the one
     PyTorch call that computes it; the gather has none (the gather and
     the scale are two calls).  Returns the ``w_gate`` rows."""
-    mem_rate, f32_rate = card_rates(name)
+    mem_rate, f32_rate, _ = card_rates(name)
     shapes = rt_models.param_shapes(full_width_arch())
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
     out_rows = {}
@@ -1062,11 +1073,25 @@ def phase_train(dev, variant, aggregation):
     return counts, trainer, state, train_loop.to_device(next(stream), dev)
 
 
+def is_annotation(evt):
+    """Whether a profiler event is a ``record_function`` range
+    (``trace.kernel_scope``'s ``repro.kernel.<name>``), which the
+    profiler also puts on the card's timeline, and not a kernel."""
+    return (bool(getattr(evt, "is_user_annotation", False))
+            or evt.key.startswith("repro."))
+
+
+def device_kernels(prof):
+    """The card's kernels in a profile, the ranges left out."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not is_annotation(e)]
+
+
 def busy_share(prof):
     """(device-busy ms, kernels): the union of the kernels' intervals."""
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   for e in device_kernels(prof))
     busy, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
@@ -1106,7 +1131,8 @@ def phase_train_breakdown(dev, trainer, state, batch):
     for avg in prof.key_averages():
         t = getattr(avg, "self_device_time_total",
                     getattr(avg, "self_cuda_time_total", 0.0))
-        if t > 0 and avg.device_type == torch.autograd.DeviceType.CUDA:
+        if (t > 0 and avg.device_type == torch.autograd.DeviceType.CUDA
+                and not is_annotation(avg)):
             top.append([avg.key[:60], t / 1e3, avg.count])
     top.sort(key=lambda r: -r[1])
     emit("train-breakdown", variant=trainer.cfg.dasha.variant,
@@ -1291,10 +1317,13 @@ def phase_paged_kernels(dev, name, flush):
     shapes: #12 at C = 256 and C = 1, with and without a window, and
     #13 (the decode view) at C = 1.  Rows ``c >= q_lens`` are garbage by
     contract: the kernel writes 0 there, which is checked, and the
-    comparison covers the valid rows.  Returns the rows of the kernels
-    line (the unwindowed cases)."""
+    comparison covers the valid rows.  The bound is the larger of the
+    bytes over the memory rate and the function's operations over the
+    bf16 tensor-core rate (``f32_ops_ms``: those operations at the
+    float32 rate).  Returns the rows of the kernels line (the unwindowed
+    cases)."""
     import torch.nn.functional as F
-    mem_rate, f32_rate = card_rates(name)
+    mem_rate, f32_rate, tc_rate = card_rates(name)
     arch = serve_arch()
     H, kvh, hd = arch.num_heads, arch.num_kv_heads, arch.hd
     gen = torch.Generator(device=dev).manual_seed(SEED + 17)
@@ -1322,7 +1351,11 @@ def phase_paged_kernels(dev, name, flush):
         nbytes = (kv_bytes + q.numel() * 2 + q.numel() * 4
                   + table.numel() * 4 + 2 * start.numel() * 4)
         bytes_ms = nbytes / mem_rate * 1e3
-        ops_ms = flops / f32_rate * 1e3
+        # the function's operations at the bf16 tensor-core rate (the
+        # split terms' extra MMAs not counted), and at the float32 rate
+        # of PRs 17-18's bounds
+        ops_ms = flops / tc_rate * 1e3
+        f32_ops_ms = flops / f32_rate * 1e3
 
         def sdpa():
             kg = rt_layers.paged_gather(k, table).transpose(1, 2)
@@ -1360,7 +1393,8 @@ def phase_paged_kernels(dev, name, flush):
                 plain_ms=time_ms(plain_fn, flush),
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                library_ms=None, bytes=nbytes, flops=flops)
+                library_ms=None, bytes=nbytes, flops=flops,
+                f32_ops_ms=f32_ops_ms)
             emit("paged-kernel", **fields, C=C, window=window,
                  shape=[SERVE["batch"], C, H, hd], kv_heads=kvh,
                  context=PAGED_CTX, page_size=SERVE["page_size"],
@@ -1398,10 +1432,11 @@ def phase_paged_mla_kernels(dev, name, flush):
     serving shapes, as the model calls it (q_abs float32, q_rope and the
     pages bf16): C = 256 (``q_lens`` in [1, 256] from the seed) and
     C = 1, with and without a window.  Rows ``c >= q_lens`` must be 0;
-    the comparison covers the valid rows.  Returns the kernels line's
-    row (C = 256, no window, the chunked-prefill passes' launch)."""
+    the comparison covers the valid rows.  Bounds as in
+    :func:`phase_paged_kernels`.  Returns the kernels line's row
+    (C = 256, no window, the chunked-prefill passes' launch)."""
     import torch.nn.functional as F
-    mem_rate, f32_rate = card_rates(name)
+    mem_rate, f32_rate, tc_rate = card_rates(name)
     arch = serve_arch(arch_id=MLA_ARCH)
     a, H = arch.mla, arch.num_heads
     r, rr = a.kv_lora_rank, a.qk_rope_head_dim
@@ -1471,7 +1506,11 @@ def phase_paged_mla_kernels(dev, name, flush):
                   + q_abs.numel() * 4 + table.numel() * 4
                   + 2 * start.numel() * 4)
         bytes_ms = nbytes / mem_rate * 1e3
-        ops_ms = flops / f32_rate * 1e3
+        # the function's operations at the bf16 tensor-core rate (the
+        # split terms' extra MMAs not counted), and at the float32 rate
+        # of PRs 17-18's bounds
+        ops_ms = flops / tc_rate * 1e3
+        f32_ops_ms = flops / f32_rate * 1e3
         before = kernels.launches[MLA_KERNEL]
         out = kernel_fn()
         torch.cuda.synchronize()
@@ -1493,7 +1532,8 @@ def phase_paged_mla_kernels(dev, name, flush):
             ms=time_ms(kernel_fn, flush), plain_ms=time_ms(plain_fn, flush),
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            library_ms=None, bytes=nbytes, flops=flops)
+            library_ms=None, bytes=nbytes, flops=flops,
+                f32_ops_ms=f32_ops_ms)
         emit("paged-mla-kernel", **fields, C=C, window=window,
              shape=[B, C, H, r], rope=rr, context=PAGED_CTX, page_size=P,
              valid_rows=int(valid.sum()), tolerance=PAGED_TOL,
@@ -1637,12 +1677,38 @@ def phase_serve(dev, long_context=False, arch_id=SERVE_ARCH):
     return counts, [list(r.generated) for r in done], engine
 
 
+def profile_pass(one_pass):
+    """One call of ``one_pass`` under torch.profiler after three
+    warm-ups: (wall ms, device-busy ms, kernel launches, the top kernels
+    [name, device ms, count], the profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        one_pass()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_pass()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_ms, launches = busy_share(prof)
+    check(launches > 0, "the profiler saw the card's kernels")
+    top = []
+    for avg in prof.key_averages():
+        t = getattr(avg, "self_device_time_total",
+                    getattr(avg, "self_cuda_time_total", 0.0))
+        if (t > 0 and avg.device_type == torch.autograd.DeviceType.CUDA
+                and not is_annotation(avg)):
+            top.append([avg.key[:60], t / 1e3, avg.count])
+    top.sort(key=lambda r: -r[1])
+    return wall_ms, device_ms, launches, top, prof
+
+
 def phase_serve_breakdown(dev, engine, tag="serve-breakdown"):
     """One pure-decode pass of the full-width model under torch.profiler:
     16 slots at 2,047 tokens of context in the engine's pool, C = 1,
     with the greedy read-back; wall time, the device's busy share and
     the top kernels."""
-    from torch.profiler import ProfilerActivity, profile
     model, B, P = engine.model, SERVE["batch"], SERVE["page_size"]
     gen = torch.Generator(device=dev).manual_seed(SEED + 19)
     M = PAGED_CTX // P
@@ -1662,28 +1728,53 @@ def phase_serve_breakdown(dev, engine, tag="serve-breakdown"):
                                                ones)
             return torch.argmax(logits, dim=-1).cpu()
 
-    for _ in range(3):
-        one_pass()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        one_pass()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    device_ms, launches = busy_share(prof)
-    check(launches > 0, "the profiler saw the card's kernels")
-    top = []
-    for avg in prof.key_averages():
-        t = getattr(avg, "self_device_time_total",
-                    getattr(avg, "self_cuda_time_total", 0.0))
-        if t > 0 and avg.device_type == torch.autograd.DeviceType.CUDA:
-            top.append([avg.key[:60], t / 1e3, avg.count])
-    top.sort(key=lambda r: -r[1])
+    wall_ms, device_ms, launches, top, _ = profile_pass(one_pass)
     emit(tag, arch=model.cfg.name, slots=B, context=PAGED_CTX,
          layers=model.cfg.num_layers, pass_wall_ms=wall_ms,
          pass_device_ms=device_ms, device_busy_share=device_ms / wall_ms,
          kernel_launches=launches, top_kernels=top[:8])
+
+
+def phase_serve_mixed_breakdown(dev, engine, tag="serve-mixed-breakdown"):
+    """One chunked-prefill (mixed) pass of the full-width model under
+    torch.profiler: 16 slots, each a chunk of 256 prompt tokens
+    (``q_lens`` 256) after MIXED_CTX tokens of context in the engine's
+    pool, with the greedy read-back; wall time, the device's busy share,
+    launches, the top kernels, and the paged kernel's device time and
+    share of the pass's device time."""
+    model, B, P = engine.model, SERVE["batch"], SERVE["page_size"]
+    chunk = SERVE["chunk"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    M = (MIXED_CTX + chunk) // P
+    table = torch.randperm(SERVE["pages"], generator=gen, device=dev)[
+        :B * M].reshape(B, M).to(torch.int32)
+    state = rt_models.model.PagedDecodeState(
+        caches=engine._caches, page_table=table,
+        seq_lens=torch.full((B,), MIXED_CTX, dtype=torch.int32, device=dev))
+    tokens = torch.randint(1, model.cfg.vocab_size, (B, chunk),
+                           generator=gen, device=dev)
+    q_lens = torch.full((B,), chunk, dtype=torch.int32, device=dev)
+
+    def one_pass():
+        with torch.no_grad():
+            logits, _ = model.paged_fused_step(engine.params, tokens, state,
+                                               q_lens)
+            return torch.argmax(logits, dim=-1).cpu()
+
+    wall_ms, device_ms, launches, top, prof = profile_pass(one_pass)
+    paged_ms, paged_launches = 0.0, 0
+    for evt in device_kernels(prof):
+        if "paged_" in evt.name:
+            paged_ms += (evt.time_range.end - evt.time_range.start) / 1e3
+            paged_launches += 1
+    check(paged_launches > 0, f"{tag}: the pass went through the paged "
+                              f"kernel")
+    emit(tag, arch=model.cfg.name, slots=B, context=MIXED_CTX, chunk=chunk,
+         layers=model.cfg.num_layers, pass_wall_ms=wall_ms,
+         pass_device_ms=device_ms, device_busy_share=device_ms / wall_ms,
+         kernel_launches=launches, paged_kernel_ms=paged_ms,
+         paged_kernel_launches=paged_launches,
+         paged_share_of_device=paged_ms / device_ms, top_kernels=top[:8])
 
 
 def _smoke_serve_model(device, arch_id=SERVE_ARCH):
@@ -1854,6 +1945,7 @@ def main():
     del flush
     counts, tokens, engine = phase_serve(dev)
     phase_serve_breakdown(dev, engine)
+    phase_serve_mixed_breakdown(dev, engine)
     del engine
     counts_lc, tokens_lc, engine = phase_serve(dev, long_context=True)
     # window 4,096 covers every context of the run
@@ -1871,6 +1963,8 @@ def main():
     del flush
     counts, _, engine = phase_serve(dev, arch_id=MLA_ARCH)
     phase_serve_breakdown(dev, engine, tag="serve-mla-breakdown")
+    phase_serve_mixed_breakdown(dev, engine,
+                                tag="serve-mla-mixed-breakdown")
     del engine
     launches[MLA_KERNEL] = counts.get(MLA_KERNEL, 0)
     gc.collect()

@@ -3,8 +3,9 @@
 One source file under ``csrc/`` becomes one shared library with a plain
 C interface, compiled for Hopper (``sm_90a``) at first use into
 ``_build/`` beside this module (listed in ``.gitignore``) and named by
-the hash of its source and flags, so an edited source is rebuilt and an
-unchanged one is loaded again.  Without PyTorch's headers a build takes
+the hash of its source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source is rebuilt and an unchanged one is loaded
+again.  Without PyTorch's headers a build takes
 seconds.  A failed build or load raises: there is no fallback.
 """
 from __future__ import annotations
@@ -60,7 +61,8 @@ def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` unless a library of the same source and
     flags is already in ``_build/``."""
     source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     log_path = out.with_suffix(".log")

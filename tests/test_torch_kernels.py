@@ -34,6 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_host_cuda
 from _hypo import given, settings, st
 from _torch_parity import numpy_inputs, to_numpy, torch_one_thread  # noqa: F401
 
@@ -878,36 +879,14 @@ def test_paged_attention_source_names_the_tpu_kernels_it_replaces():
     assert "arch=compute_90a,code=sm_90a" in cmd
 
 
-# The paged kernel keeps K/V tiles in shared memory and reduces over a
-# warp: on the host one thread is a warp of one lane that works every
-# row of its block.
-_PAGED_HOST_STUB = _HOST_CUDA_STUB + r"""
-#include <cmath>
-#define __shared__ static
-#define PA_LANES 1
-#define PA_ROWS_PER_WARP 16
-inline void __syncthreads() {}
-inline float __shfl_sync(unsigned, float v, int) { return v; }
-inline float __shfl_xor_sync(unsigned, float v, int) { return v; }
-"""
-
-
 @pytest.fixture(scope="module")
 def paged_host_build(tmp_path_factory):
-    """``csrc/paged_attention.cu`` compiled for the host."""
-    cxx = shutil.which("g++")
-    if cxx is None:
-        pytest.skip("no g++ to compile the CUDA source for the host")
-    out = tmp_path_factory.mktemp("host_paged")
-    (out / "cuda_runtime.h").write_text(_PAGED_HOST_STUB)
-    src = (build.CSRC / "paged_attention.cu").read_text()
-    (out / "host.cpp").write_text(re.sub(r"<<<[^>]*>>>", "", src))
-    lib = out / "libhost.so"
-    subprocess.run([cxx, "-std=c++17", "-O1", "-ffp-contract=off",
-                    "-shared", "-fPIC", "-I", str(out), "-o", str(lib),
-                    str(out / "host.cpp")], check=True, capture_output=True,
-                   timeout=300)
-    host = ctypes.CDLL(str(lib))
+    """``csrc/paged_attention.cu`` compiled for the host: one thread plays
+    the grid and the tensor-core fragments are plain loops in which one
+    lane owns the whole fragment (``tests/_torch_host_cuda.py``); the
+    real fragment layout is checked only on the card."""
+    host = _torch_host_cuda.host_library(
+        tmp_path_factory.mktemp("host_paged"), "paged_attention")
     host.paged_attention.argtypes = paged_kernels._SIGNATURE
     host.paged_attention.restype = ctypes.c_int
     host.paged_attention_splits.argtypes = paged_kernels._SPLITS_SIGNATURE
@@ -923,7 +902,11 @@ def paged_host_build(tmp_path_factory):
     (2, 3, 4, 2, 8, 4, 16, 4, None), (2, 3, 4, 2, 8, 4, 16, 4, 5),
     (3, 17, 4, 2, 32, 16, 20, 5, None), (3, 17, 4, 2, 32, 16, 20, 5, 7),
     (2, 1, 32, 8, 64, 16, 40, 9, None), (2, 70, 32, 8, 64, 16, 40, 12, 100),
-    (1, 5, 2, 1, 64, 3, 10, 7, 4)])
+    (1, 5, 2, 1, 64, 3, 10, 7, 4),
+    # the last block's rows not a whole 64-row tile (C G = 148, 60, 27,
+    # not multiples of 16), hd padded to 16s, walks ending mid-tile
+    (2, 37, 8, 2, 64, 16, 24, 6, None), (1, 20, 12, 4, 16, 5, 12, 7, 9),
+    (2, 9, 6, 2, 24, 7, 12, 5, None)])
 def test_paged_attention_source_on_the_host_matches_plain_version(
         paged_host_build, shape, offset, dtypes, splits):
     """The kernel's page walk (table lookups, pages that do not divide the
@@ -963,10 +946,41 @@ def test_paged_attention_source_on_the_host_matches_plain_version(
     assert torch.equal(out[~valid], torch.zeros_like(out[~valid]))
 
 
+@pytest.mark.parametrize("dtypes", ["f32", "bf16"])
+def test_paged_attention_source_on_the_host_holds_near_tied_scores(
+        paged_host_build, dtypes):
+    """Precision: 1,120 positions whose keys differ by 1e-4 (scores tied
+    to about that), values from 1e-3 to 1e2 in magnitude with both signs,
+    every row valid: the three-term products of the float32 operands and
+    of p keep the rows within rtol = atol = 1e-5 of the plain version."""
+    B, C, H, kvh, hd, P, M = 1, 4, 4, 2, 64, 16, 70
+    NP = M + 2
+    dt = torch.bfloat16 if dtypes == "bf16" else torch.float32
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((B, C, H, hd)).astype(np.float32)
+    k = (rng.standard_normal(hd)
+         + 1e-4 * rng.standard_normal((NP, P, kvh, hd))).astype(np.float32)
+    v = (rng.choice([-1.0, 1.0], (NP, P, kvh, hd))
+         * 10.0 ** rng.uniform(-3, 2, (NP, P, kvh, hd))).astype(np.float32)
+    q, k, v = (torch.from_numpy(a).to(dt) for a in (q, k, v))
+    table = torch.from_numpy(
+        rng.permutation(NP)[:M].reshape(B, M).astype(np.int32))
+    start = torch.tensor([M * P - C], dtype=torch.int32)
+    q_lens = torch.tensor([C], dtype=torch.int32)
+    out = torch.full((B, C, H, hd), float("nan"))
+    assert paged_host_build.paged_attention(
+        q.data_ptr(), int(dt == torch.bfloat16), k.data_ptr(), v.data_ptr(),
+        int(dt == torch.bfloat16), table.data_ptr(), start.data_ptr(),
+        q_lens.data_ptr(), out.data_ptr(), None, B, C, H, kvh, hd, P, M, 0,
+        1, None) == 0
+    want = ref.paged_attention_batched_ref(q, k, v, table, start, q_lens)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), **PAGED_TOL)
+
+
 def test_paged_attention_splits_only_launches_of_few_blocks(
         paged_host_build):
     """A decode pass of 16 slots and 8 kv heads (128 blocks) splits each
-    walk; a chunked-prefill pass (8,192 blocks) and a short table do
+    walk; a chunked-prefill pass (2,048 blocks) and a short table do
     not."""
     splits = paged_host_build.paged_attention_splits
     assert splits(16, 1, 32, 8, 16, 128) == 9
